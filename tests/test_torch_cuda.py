@@ -1,0 +1,99 @@
+"""The port's CUDA kernels on the GPU, against their plain versions.
+
+Marked ``cuda``: they skip where no GPU exists.  On a GPU machine (which
+need not have jax):
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import rng
+from repro_torch.channel import ChannelConfig
+from repro_torch.core.protocols import FederatedConfig, FederatedTrainer
+from repro_torch.data import partition_iid, synthetic_images
+from repro_torch.kernels import runtime
+from repro_torch.kernels.distill_loss import (distill_phi_psi,
+                                              phi_psi_bwd_plain,
+                                              phi_psi_plain)
+from repro_torch.kernels.mixup_kernel import mixup, mixup_plain
+from repro_torch.models import CNN
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("n,f", [(100, 784), (33, 17), (1, 1)])
+def test_mixup_kernel_matches_plain(gpu, n, f):
+    g = torch.Generator(device=gpu).manual_seed(n)
+    a, b = (torch.rand(n, f, generator=g, device=gpu) for _ in range(2))
+    la = torch.full((n,), -0.125, device=gpu)
+    before = runtime.KERNELS["mixup"].launches
+    got = mixup(a, b, la, 1.0 - la)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["mixup"].launches == before + 1
+    torch.testing.assert_close(got, mixup_plain(a, b, la, 1.0 - la),
+                               rtol=0, atol=1e-5)
+    got16 = mixup(a.bfloat16(), b.bfloat16(), la, 1.0 - la)
+    want16 = mixup_plain(a.bfloat16(), b.bfloat16(), la, 1.0 - la)
+    assert got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got16.float(), want16.float(), rtol=8e-3,
+                               atol=0)
+
+
+@pytest.mark.parametrize("n,c", [(160, 10), (33, 12), (7, 70)])
+def test_distill_kernels_match_plain(gpu, n, c):
+    g_ = torch.Generator(device=gpu).manual_seed(c)
+    z = (2 * torch.randn(n, c, generator=g_, device=gpu)).requires_grad_()
+    y = torch.randint(0, c, (n,), generator=g_, device=gpu)
+    g = torch.softmax(torch.randn(n, c, generator=g_, device=gpu), -1)
+    g[0] = 0.0
+    g = g.requires_grad_()
+    phi, psi = distill_phi_psi(z, y, g)
+    (phi.sum() + 0.5 * psi.sum()).backward()
+    torch.cuda.synchronize()
+    want = phi_psi_plain(z.detach(), y, g.detach())
+    torch.testing.assert_close((phi, psi), want, rtol=0, atol=1e-5)
+    dz, dg = phi_psi_bwd_plain(z.detach(), y, g.detach(),
+                               torch.ones(n, device=gpu),
+                               torch.full((n,), 0.5, device=gpu))
+    torch.testing.assert_close(z.grad, dz, rtol=0, atol=1e-5)
+    torch.testing.assert_close(g.grad, dg, rtol=0, atol=1e-5)
+
+
+def test_kernels_refuse_what_they_do_not_take(gpu):
+    a = torch.rand(4, 5, device=gpu, dtype=torch.float64)
+    la = torch.rand(4, device=gpu)
+    with pytest.raises(ValueError):
+        mixup(a, a, la, la)
+    with pytest.raises(ValueError):
+        mixup(a.float().t(), a.float().t(), torch.rand(5, device=gpu),
+              torch.rand(5, device=gpu))
+    with pytest.raises(ValueError):
+        mixup(a.float(), a.float().cpu(), la, la)
+
+
+def test_trainer_on_gpu_matches_cpu(gpu):
+    x, y = synthetic_images(rng.PRNGKey(42), 1400, device="cpu")
+    dev_x, dev_y = partition_iid(x[:1200], y[:1200], 4, 300, 10, seed=0)
+    fc = FederatedConfig(protocol="mix2fld", num_devices=4, local_iters=8,
+                         local_batch=16, server_iters=8, server_batch=16,
+                         max_rounds=2, n_seed=6, n_inverse=12)
+    ch = ChannelConfig(num_devices=4, p_up_dbm=40.0)
+    runtime.reset_launch_counts()
+    h_gpu = FederatedTrainer(CNN(), fc, ch, device=gpu).run(
+        dev_x, dev_y, x[1200:], y[1200:])
+    counts = runtime.launch_counts()
+    h_cpu = FederatedTrainer(CNN(), fc, ch, device="cpu").run(
+        dev_x, dev_y, x[1200:], y[1200:])
+    assert counts["mixup"] >= 3 and counts["distill_fwd"] == 16
+    np.testing.assert_allclose(h_gpu["loss"], h_cpu["loss"], atol=1e-4)
+    np.testing.assert_allclose(h_gpu["acc"], h_cpu["acc"], atol=1e-4)
+    assert h_gpu["round_latency_s"] == h_cpu["round_latency_s"]

@@ -1,0 +1,138 @@
+"""The port's kernel modules on the CPU: each plain version against the
+reference's Pallas kernel (interpret mode, as the reference's own tests
+run it), the autograd Function against gradcheck, and the dispatch rule.
+The CUDA kernels themselves run only on a GPU (tests/test_torch_cuda.py
+and chip_smoke.py hold them against these plain versions there)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import runtime
+from repro_torch.kernels.distill_loss import (distill_phi_psi, phi_psi_bwd,
+                                              phi_psi_bwd_plain, phi_psi_fwd,
+                                              phi_psi_plain)
+from repro_torch.kernels.mixup_kernel import mixup, mixup_plain
+from test_torch_reference import load_reference
+
+# float32 on both sides: the same elementwise arithmetic, the tolerance
+# covers exp/log and summation-order differences
+F32_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("n,f", [(8, 64), (100, 784), (256, 512), (33, 17)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mixup_plain_matches_pallas(n, f, dtype):
+    ref = load_reference()
+    rs = np.random.default_rng(n * 1000 + f)
+    a = rs.standard_normal((n, f)).astype(np.float32)
+    b = rs.standard_normal((n, f)).astype(np.float32)
+    la = rs.uniform(-0.2, 1.2, n).astype(np.float32)
+    lb = (1.0 - la).astype(np.float32)
+    jd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    td = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    want = ref.mixup_kernel.mixup_pallas(jnp.asarray(a, jd),
+                                         jnp.asarray(b, jd),
+                                         jnp.asarray(la), jnp.asarray(lb))
+    got = mixup(torch.tensor(a).to(td), torch.tensor(b).to(td),
+                torch.tensor(la), torch.tensor(lb))
+    assert got.dtype == td
+    want = np.asarray(want, np.float32)
+    if dtype == "float32":
+        # XLA may contract the two products into an FMA: last-bit only
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=F32_ATOL)
+    else:
+        # both round one float32 result to bfloat16: at most 1 bf16 ulp
+        ab = [torch.tensor(t).to(td).float().numpy() for t in (a, b)]
+        exact = la[:, None] * ab[0] + lb[:, None] * ab[1]
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(exact),
+                                                  1e-30))) - 7)
+        assert (np.abs(got.float().numpy() - want) <= ulp).all()
+
+
+def _distill_inputs(n, c, seed):
+    rs = np.random.default_rng(seed)
+    z = (2.0 * rs.standard_normal((n, c))).astype(np.float32)
+    y = rs.integers(0, c, n)
+    g = np.exp(rs.standard_normal((n, c)))
+    g = (g / g.sum(-1, keepdims=True)).astype(np.float32)
+    g[: n // 4] = rs.uniform(0, 1, (n // 4, c))   # unnormalised rows
+    g[n // 4: n // 4 + 2] = 0.0                    # zero rows
+    return z, y, g
+
+
+@pytest.mark.parametrize("n,c", [(160, 10), (16, 10), (33, 12), (1000, 10)])
+def test_distill_plain_matches_pallas_value_and_vjp(n, c):
+    ref = load_reference()
+    z, y, g = _distill_inputs(n, c, n + c)
+    rs = np.random.default_rng(1)
+    dphi = rs.standard_normal(n).astype(np.float32)
+    dpsi = rs.standard_normal(n).astype(np.float32)
+    (phi_j, psi_j), vjp = jax.vjp(
+        lambda z_, g_: ref.distill_loss.distill_phi_psi(
+            z_, jnp.asarray(y, jnp.int32), g_), jnp.asarray(z),
+        jnp.asarray(g))
+    dz_j, dg_j = vjp((jnp.asarray(dphi), jnp.asarray(dpsi)))
+    zt, yt, gt = torch.tensor(z), torch.tensor(y), torch.tensor(g)
+    phi, psi = phi_psi_plain(zt, yt, gt)
+    dz, dg = phi_psi_bwd_plain(zt, yt, gt, torch.tensor(dphi),
+                               torch.tensor(dpsi))
+    for want, got in ((phi_j, phi), (psi_j, psi), (dz_j, dz), (dg_j, dg)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=0, atol=F32_ATOL)
+
+
+def test_distill_autograd_function_backward_is_the_plain_vjp():
+    z, y, g = _distill_inputs(40, 10, 3)
+    zt = torch.tensor(z, requires_grad=True)
+    gt = torch.tensor(g, requires_grad=True)
+    yt = torch.tensor(y)
+    phi, psi = distill_phi_psi(zt, yt, gt)
+    (phi * 0.3 + psi * 0.7).sum().backward()
+    dz, dg = phi_psi_bwd_plain(zt.detach(), yt, gt.detach(),
+                               torch.full((40,), 0.3),
+                               torch.full((40,), 0.7))
+    torch.testing.assert_close(zt.grad, dz)
+    torch.testing.assert_close(gt.grad, dg)
+
+
+def test_distill_autograd_function_gradcheck_float64():
+    z, y, g = _distill_inputs(12, 7, 4)
+    zt = torch.tensor(z, dtype=torch.float64, requires_grad=True)
+    gt = torch.tensor(g, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda z_, g_: distill_phi_psi(z_, torch.tensor(y), g_), (zt, gt))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    runtime.reset_launch_counts()
+    a = torch.rand(5, 7)
+    la = torch.rand(5)
+    torch.testing.assert_close(mixup(a, a, la, 1 - la),
+                               mixup_plain(a, a, la, 1 - la))
+    z, y, g = (torch.tensor(t) for t in _distill_inputs(8, 5, 0))
+    torch.testing.assert_close(phi_psi_fwd(z, y, g), phi_psi_plain(z, y, g))
+    d = torch.ones(8)
+    torch.testing.assert_close(phi_psi_bwd(z, y, g, d, d),
+                               phi_psi_bwd_plain(z, y, g, d, d))
+    assert set(runtime.launch_counts().values()) == {0}
+
+
+def test_wrappers_reject_bad_arguments():
+    a = torch.rand(5, 7)
+    with pytest.raises(ValueError):
+        mixup(a, torch.rand(5, 6), torch.rand(5), torch.rand(5))
+    with pytest.raises(ValueError):
+        mixup(a, a, torch.rand(4), torch.rand(4))
+    with pytest.raises(ValueError):
+        runtime.on_cuda(a, torch.rand(3, device="meta"))
+    with pytest.raises(ValueError):
+        runtime.on_cuda(torch.rand(3, device="meta"))
+
+
+def test_every_kernel_is_registered_with_a_source():
+    names = set(runtime.KERNELS)
+    assert names == {"mixup", "distill_fwd", "distill_bwd"}
+    for k in runtime.KERNELS.values():
+        assert (runtime.SRC_DIR / k.source).is_file()
