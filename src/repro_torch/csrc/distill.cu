@@ -1,14 +1,17 @@
-// Per-sample distillation terms of eq. (3) of Mix2FLD and their backward.
+// Per-sample distillation terms of eq. (3) of Mix2FLD, their backward,
+// and the fused forward-only loss.
 //
 // Row i has logits z (C classes), label y and KD target row g:
 //
 //   phi = lse(z) - z[y]                 psi = sum(g) * lse(z) - g . z
 //   dz  = dphi * (softmax(z) - onehot(y)) + dpsi * (sum(g) * softmax(z) - g)
 //   dg  = dpsi * (lse(z) - z)
+//   loss = phi + beta * (lse(z) - g . z)    (rows of g assumed to sum to 1)
 //
 // Replaces the Pallas kernels of src/repro/kernels/distill_loss.py:
-// _phi_psi_kernel (launched by _phi_psi_fwd_call) and
-// _phi_psi_bwd_kernel (launched by _phi_psi_bwd_call).  Those run
+// _phi_psi_kernel (launched by _phi_psi_fwd_call),
+// _phi_psi_bwd_kernel (launched by _phi_psi_bwd_call) and
+// _distill_kernel (launched by distill_loss_pallas).  Those run
 // 128-row VMEM blocks over the whole class dim; here one warp owns one
 // row, its 32 lanes stride over the C classes (any C works, the tail
 // lanes just hold the identity of each reduction), and warp shuffles
@@ -107,6 +110,32 @@ __global__ void phi_psi_bwd_kernel(const float* __restrict__ z,
   }
 }
 
+__global__ void distill_loss_kernel(const float* __restrict__ z,
+                                    const int64_t* __restrict__ y,
+                                    const float* __restrict__ g,
+                                    float* __restrict__ out, int64_t n,
+                                    int c, float beta) {
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;
+  const float* zr = z + row * c;
+  const float* gr = g + row * c;
+  const int64_t label = y[row];
+  const RowStats st = row_stats(zr, c, lane);
+  float zy = 0.f, gz = 0.f;
+  for (int j = lane; j < c; j += 32) {
+    const float zj = zr[j];
+    if (j == label) zy = zj;
+    gz += gr[j] * zj;
+  }
+  zy = warp_sum(zy);
+  gz = warp_sum(gz);
+  if (lane == 0) {
+    const float lse = logf(st.s) + st.m;
+    out[row] = (lse - zy) + beta * (lse - gz);
+  }
+}
+
 static unsigned grid_for(int64_t n, int threads) {
   const int64_t rows_per_block = threads / 32;
   return (unsigned)((n + rows_per_block - 1) / rows_per_block);
@@ -136,5 +165,17 @@ extern "C" int phi_psi_bwd_launch(const void* z, const void* y,
       (const float*)z, (const int64_t*)y, (const float*)g,
       (const float*)dphi, (const float*)dpsi, (float*)dz, (float*)dg, n,
       (int)c);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int distill_loss_launch(const void* z, const void* y,
+                                   const void* g, void* out, int64_t n,
+                                   int64_t c, float beta, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  distill_loss_kernel<<<grid_for(n, threads), threads, 0,
+                        (cudaStream_t)stream>>>(
+      (const float*)z, (const int64_t*)y, (const float*)g, (float*)out, n,
+      (int)c, beta);
   return (int)cudaGetLastError();
 }

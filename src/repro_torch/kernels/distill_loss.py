@@ -11,6 +11,12 @@ and backward are the CUDA kernels of ``csrc/distill.cu`` for CUDA
 tensors, and :func:`phi_psi_plain` / :func:`phi_psi_bwd_plain` for CPU
 tensors.  psi carries the exact ``sum(g) * lse`` term, so it matches the
 KD regularizer for unnormalised and zero G_out rows too.
+
+:func:`distill_loss` is the reference's fused forward-only
+``phi + beta * (lse - g . z)`` (it assumes rows of g sum to 1, as G_out
+rows do): the third kernel of ``csrc/distill.cu`` on the GPU,
+:func:`distill_loss_plain` on the CPU.  It has no gradient, as the
+reference kernel has none.
 """
 from __future__ import annotations
 
@@ -24,6 +30,11 @@ FWD = CudaKernel("distill_fwd", "distill.cu", "phi_psi_fwd_launch",
                  [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2)
 BWD = CudaKernel("distill_bwd", "distill.cu", "phi_psi_bwd_launch",
                  [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 2)
+
+
+LOSS = CudaKernel("distill_loss", "distill.cu", "distill_loss_launch",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
+                  + [ctypes.c_float])
 
 
 def _work_dtype(t):
@@ -121,3 +132,33 @@ def distill_phi_psi(z, y, g):
     """Per-sample (phi, psi): z (N, C); y (N,) int64; g (N, C) KD target
     rows.  Forward and backward run as the CUDA kernels on the GPU."""
     return DistillPhiPsi.apply(z, y, g)
+
+
+def distill_loss_plain(logits, labels, g_rows, beta):
+    """Plain forward of the fused loss (the reference's
+    ``distill_loss_ref``): (N,) float32."""
+    z = logits.to(torch.float32)
+    lse = torch.logsumexp(z, dim=-1)
+    zy = z.gather(-1, labels.long()[:, None])[:, 0]
+    gz = (g_rows.to(torch.float32) * z).sum(-1)
+    return (lse - zy) + beta * (lse - gz)
+
+
+def distill_loss(logits, labels, g_rows, beta: float):
+    """Per-sample ``phi + beta * psi`` with psi = lse - g . z: logits
+    (N, C) float32, labels (N,) int64, g_rows (N, C) float32, beta a
+    float.  Forward only: raises if a gradient is asked for."""
+    if torch.is_grad_enabled() and (logits.requires_grad
+                                    or g_rows.requires_grad):
+        raise RuntimeError(
+            "distill_loss is forward only (the reference kernel has no "
+            "gradient); differentiate through distill_phi_psi instead")
+    if not on_cuda(logits, labels, g_rows):
+        return distill_loss_plain(logits, labels, g_rows, beta)
+    _check(logits, labels, g_rows)
+    n, c = logits.shape
+    out = torch.empty(n, dtype=torch.float32, device=logits.device)
+    if n:
+        LOSS.launch(logits.device, logits.data_ptr(), labels.data_ptr(),
+                    g_rows.data_ptr(), out.data_ptr(), n, c, float(beta))
+    return out

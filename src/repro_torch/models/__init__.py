@@ -1,3 +1,5 @@
-"""Model stack of the port: the paper CNN.  The model registry, the MLP
-and the transformer/SSM stack wait for later slices."""
+"""Model stack of the port: the paper CNN, and the dense transformer of
+the LM serve path (``layers``, ``rope``, ``attention``, ``kvcache``,
+``mlp``, ``transformer``).  The model registry, the classifier MLP and
+the MoE/MLA/SSM families wait for later slices (ROADMAP A10, A15)."""
 from .cnn import CNN, from_jax_params, to_jax_params  # noqa: F401

@@ -80,13 +80,18 @@ def fold_in(key, data: int):
     return torch.stack([b1[..., 0], b2[..., 0]], dim=-1)
 
 
-def random_bits(key, shape):
-    """32 random bits per element: (..., 2) -> (..., *shape) int64."""
+def random_bits(key, shape, offset: int = 0):
+    """32 random bits per element: (..., 2) -> (..., *shape) int64.
+
+    ``offset`` draws elements ``offset .. offset + prod(shape) - 1`` (in
+    flat order) of a larger draw from the same key, so a big array can be
+    drawn in row chunks with the stream unchanged."""
     shape = tuple(shape)
     n = math.prod(shape)
-    if n >= 2 ** 32:
+    if offset + n >= 2 ** 32:
         raise NotImplementedError("more than 2**32 draws from one key")
-    lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    lo = torch.arange(offset, offset + n, dtype=torch.int64,
+                      device=key.device).reshape(shape)
     b1, b2 = _hash(key, lo)
     return b1 ^ b2
 
@@ -99,14 +104,17 @@ def randint(key, shape, minval: int, maxval: int):
     span = maxval - minval if maxval > minval else 1
     if span >= 2 ** 31:
         raise NotImplementedError("randint spans of 2**31 or more")
-    mult = (2 ** 16 % span) ** 2 % span
-    off = ((hi % span) * mult + lo % span) % span
-    return off + minval
+    # jax computes in uint32: both products and the sum wrap at 2**32
+    # (for spans above 2**16 the multiplier wraps to 0)
+    mult = ((2 ** 16 % span) ** 2 & MASK) % span
+    off = ((((hi % span) * mult) & MASK) + lo % span) & MASK
+    return off % span + minval
 
 
-def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            offset: int = 0):
     """``jax.random.uniform`` in float32: (..., 2) -> (..., *shape)."""
-    bits = random_bits(key, shape)
+    bits = random_bits(key, shape, offset)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
@@ -158,9 +166,10 @@ _NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
 _SQRT2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32)
 
 
-def normal(key, shape):
-    """``jax.random.normal`` in float32: sqrt(2) * erfinv(u), u in (-1, 1)."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
+def normal(key, shape, offset: int = 0):
+    """``jax.random.normal`` in float32: sqrt(2) * erfinv(u), u in (-1, 1).
+    ``offset`` as in :func:`random_bits`."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, offset)
     return _SQRT2.to(u.device) * erfinv(u)
 
 

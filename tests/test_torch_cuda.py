@@ -14,10 +14,16 @@ from repro_torch.channel import ChannelConfig
 from repro_torch.core.protocols import FederatedConfig, FederatedTrainer
 from repro_torch.data import partition_iid, synthetic_images
 from repro_torch.kernels import runtime
-from repro_torch.kernels.distill_loss import (distill_phi_psi,
+from repro_torch.kernels import ops
+from repro_torch.kernels.distill_loss import (distill_loss,
+                                              distill_loss_plain,
+                                              distill_phi_psi,
                                               phi_psi_bwd_plain,
                                               phi_psi_plain)
+from repro_torch.kernels.flash_attention import (attention_plain,
+                                                 flash_attention)
 from repro_torch.kernels.mixup_kernel import mixup, mixup_plain
+from repro_torch.launch.serve import serve
 from repro_torch.models import CNN
 
 pytestmark = pytest.mark.cuda
@@ -97,3 +103,52 @@ def test_trainer_on_gpu_matches_cpu(gpu):
     np.testing.assert_allclose(h_gpu["loss"], h_cpu["loss"], atol=1e-4)
     np.testing.assert_allclose(h_gpu["acc"], h_cpu["acc"], atol=1e-4)
     assert h_gpu["round_latency_s"] == h_cpu["round_latency_s"]
+
+
+# bf16: the kernel rounds the running-max probabilities, the plain
+# version the normalised ones, both round the output: 2 bf16 ulps, |o|<=4
+@pytest.mark.parametrize("bh,s,d,dtype,window,atol", [
+    (56, 1024, 64, torch.bfloat16, None, 2 * 2.0 ** -6),  # serve prefill
+    (8, 100, 64, torch.float32, None, 2e-5),              # ragged tail
+    (8, 512, 64, torch.bfloat16, 128, 2 * 2.0 ** -6),     # sliding window
+    (8, 256, 32, torch.float32, None, 2e-5),
+    (4, 300, 128, torch.float32, 7, 2e-5),
+    (2, 1, 32, torch.float32, None, 2e-5),
+])
+def test_flash_attention_kernel_matches_plain(gpu, bh, s, d, dtype, window,
+                                              atol):
+    g = torch.Generator(device=gpu).manual_seed(s)
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=gpu).to(dtype)
+               for _ in range(3))
+    before = runtime.KERNELS["flash_attention"].launches
+    got = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["flash_attention"].launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (bh, s, d)
+    torch.testing.assert_close(got.float(),
+                               attention_plain(q, k, v, window).float(),
+                               rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("n,c", [(160, 10), (33, 12), (1000, 10)])
+def test_distill_loss_kernel_matches_plain(gpu, n, c):
+    g_ = torch.Generator(device=gpu).manual_seed(n)
+    z = 2 * torch.randn(n, c, generator=g_, device=gpu)
+    y = torch.randint(0, c, (n,), generator=g_, device=gpu)
+    gout = torch.softmax(torch.randn(c, c, generator=g_, device=gpu), -1)
+    before = runtime.KERNELS["distill_loss"].launches
+    per = distill_loss(z, y, gout[y], 0.01)
+    mean = ops.distill_loss(z, y, gout, 0.01)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["distill_loss"].launches == before + 2
+    want = distill_loss_plain(z, y, gout[y], 0.01)
+    torch.testing.assert_close(per, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(mean, want.mean(), rtol=0, atol=1e-5)
+
+
+def test_serve_smoke_on_gpu_matches_cpu(gpu):
+    runtime.reset_launch_counts()
+    got = serve("qwen2-0.5b", 2, 64, 6, smoke=True, device=gpu)
+    assert runtime.launch_counts()["flash_attention"] == 2   # two layers
+    want = serve("qwen2-0.5b", 2, 64, 6, smoke=True, device="cpu")
+    assert torch.equal(got.cpu(), want)

@@ -8,10 +8,14 @@ import pytest
 import torch
 
 from repro_torch import rng
+from repro_torch.configs import get_config
 from repro_torch.core.protocols import FederatedConfig, FederatedTrainer
-from repro_torch.data import synthetic_images
+from repro_torch.data import synthetic_images, synthetic_tokens
 from repro_torch.device import resolve_device
+from repro_torch.launch.serve import serve
 from repro_torch.models import CNN
+from repro_torch.models.kvcache import init_cache
+from repro_torch.models.transformer import init_params
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -46,4 +50,13 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         FederatedTrainer(CNN(), FederatedConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synthetic_images(rng.PRNGKey(0), 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_tokens(rng.PRNGKey(1), 2, 8, 512)
+    cfg = get_config("qwen2-0.5b-smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, rng.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve("qwen2-0.5b", 2, 8, 2)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,6 +1,7 @@
 """The port's kernel modules on the CPU: each plain version against the
 reference's Pallas kernel (interpret mode, as the reference's own tests
-run it), the autograd Function against gradcheck, and the dispatch rule.
+run it), the ``ops`` wrappers against the reference's, the autograd
+Function against gradcheck, and the dispatch rule.
 The CUDA kernels themselves run only on a GPU (tests/test_torch_cuda.py
 and chip_smoke.py hold them against these plain versions there)."""
 import jax
@@ -9,16 +10,24 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import runtime
-from repro_torch.kernels.distill_loss import (distill_phi_psi, phi_psi_bwd,
+from repro_torch.kernels import ops, runtime
+from repro_torch.kernels.distill_loss import (distill_loss,
+                                              distill_loss_plain,
+                                              distill_phi_psi, phi_psi_bwd,
                                               phi_psi_bwd_plain, phi_psi_fwd,
                                               phi_psi_plain)
+from repro_torch.kernels.flash_attention import (attention_plain,
+                                                 flash_attention)
 from repro_torch.kernels.mixup_kernel import mixup, mixup_plain
 from test_torch_reference import load_reference
 
 # float32 on both sides: the same elementwise arithmetic, the tolerance
 # covers exp/log and summation-order differences
 F32_ATOL = 1e-5
+# bfloat16 attention: the Pallas kernel rounds the unnormalised
+# probabilities (running max) to bf16, the plain version the normalised
+# ones, and both round the output: 2 bf16 ulps of |o| <= 4
+BF16_ATTN_ATOL = 2 * 2.0 ** -6
 
 
 @pytest.mark.parametrize("n,f", [(8, 64), (100, 784), (256, 512), (33, 17)])
@@ -105,6 +114,112 @@ def test_distill_autograd_function_gradcheck_float64():
         lambda z_, g_: distill_phi_psi(z_, torch.tensor(y), g_), (zt, gt))
 
 
+def _qkv(bh, s, d, seed):
+    rs = np.random.default_rng(seed)
+    return [rs.standard_normal((bh, s, d)).astype(np.float32)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("bh,s,d", [(4, 256, 32), (2, 256, 64)])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_plain_matches_pallas(bh, s, d, window, dtype):
+    """Two 128-blocks of queries and keys, so the Pallas online softmax
+    crosses blocks."""
+    ref = load_reference()
+    q, k, v = _qkv(bh, s, d, bh * s + d)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = ref.flash_attention.flash_attention_pallas(
+        *(jnp.asarray(t, jd) for t in (q, k, v)), window=window,
+        interpret=True, blk_q=128, blk_k=128)
+    got = attention_plain(*(torch.tensor(t).to(td) for t in (q, k, v)),
+                          window=window)
+    assert got.dtype == td and tuple(got.shape) == (bh, s, d)
+    atol = F32_ATOL if dtype == "float32" else BF16_ATTN_ATOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("s,window", [(100, None), (37, 5), (1, None)])
+def test_flash_wrapper_matches_attention_ref_at_any_length(s, window):
+    """Prompt lengths that no Pallas block divides: the wrapper against
+    the reference's attention_ref oracle."""
+    ref = load_reference()
+    q, k, v = _qkv(3, s, 32, s)
+    want = ref.ref.attention_ref(*(jnp.asarray(t) for t in (q, k, v)),
+                                 window=window)
+    got = flash_attention(*(torch.tensor(t) for t in (q, k, v)),
+                          window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("n,c", [(160, 10), (33, 12), (1000, 10)])
+def test_distill_loss_plain_matches_pallas(n, c):
+    ref = load_reference()
+    z, y, g = _distill_inputs(n, c, n * c)
+    g = np.exp(g) / np.exp(g).sum(-1, keepdims=True)   # normalised rows
+    want = ref.distill_loss.distill_loss_pallas(
+        jnp.asarray(z), jnp.asarray(y, jnp.int32), jnp.asarray(g), 0.01)
+    got = distill_loss(torch.tensor(z), torch.tensor(y), torch.tensor(g),
+                       0.01)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=F32_ATOL)
+    np.testing.assert_allclose(
+        distill_loss_plain(torch.tensor(z), torch.tensor(y),
+                           torch.tensor(g), 0.01).numpy(),
+        np.asarray(ref.ref.distill_loss_ref(
+            jnp.asarray(z), jnp.asarray(y), jnp.asarray(g), 0.01)),
+        rtol=0, atol=F32_ATOL)
+
+
+def test_ops_wrappers_match_reference_ops():
+    ref = load_reference()
+    rs = np.random.default_rng(11)
+    a = rs.uniform(0, 1, (6, 28, 28, 1)).astype(np.float32)
+    b = rs.uniform(0, 1, (6, 28, 28, 1)).astype(np.float32)
+    np.testing.assert_allclose(
+        ops.mixup(torch.tensor(a), torch.tensor(b), 0.1).numpy(),
+        np.asarray(ref.ops.mixup(jnp.asarray(a), jnp.asarray(b), 0.1)),
+        rtol=0, atol=F32_ATOL)
+    for got, want in zip(
+            ops.inverse_mixup_pair(torch.tensor(a), torch.tensor(b), 0.1),
+            ref.ops.inverse_mixup_pair(jnp.asarray(a), jnp.asarray(b),
+                                       0.1)):
+        assert tuple(got.shape) == a.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=F32_ATOL)
+    z, y, _ = _distill_inputs(64, 10, 2)
+    gout = rs.uniform(0, 1, (10, 10))
+    gout = (gout / gout.sum(-1, keepdims=True)).astype(np.float32)
+    got = ops.distill_loss(torch.tensor(z), torch.tensor(y, dtype=torch.int32),
+                           torch.tensor(gout), 0.01)
+    want = ref.ops.distill_loss(jnp.asarray(z), jnp.asarray(y, jnp.int32),
+                                jnp.asarray(gout), 0.01)
+    assert got.shape == ()
+    np.testing.assert_allclose(float(got), float(want), rtol=0,
+                               atol=F32_ATOL)
+    q, k, v = _qkv(2, 256, 32, 5)
+    np.testing.assert_allclose(
+        ops.flash_attention(*(torch.tensor(t) for t in (q, k, v)),
+                            window=32).numpy(),
+        np.asarray(ref.ops.flash_attention(
+            *(jnp.asarray(t) for t in (q, k, v)), window=32)),
+        rtol=0, atol=F32_ATOL)
+    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+        ops.ssd_scan(*(torch.zeros(1, 4, 2) for _ in range(3)),
+                     torch.zeros(1, 4))
+
+
+def test_distill_loss_refuses_gradients():
+    z, y, g = (torch.tensor(t) for t in _distill_inputs(8, 5, 0))
+    with pytest.raises(RuntimeError, match="forward only"):
+        distill_loss(z.requires_grad_(), y, g, 0.01)
+    with torch.no_grad():
+        assert distill_loss(z, y, g, 0.01).shape == (8,)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     runtime.reset_launch_counts()
     a = torch.rand(5, 7)
@@ -116,6 +231,11 @@ def test_cpu_tensors_take_the_plain_versions():
     d = torch.ones(8)
     torch.testing.assert_close(phi_psi_bwd(z, y, g, d, d),
                                phi_psi_bwd_plain(z, y, g, d, d))
+    torch.testing.assert_close(distill_loss(z, y, g, 0.5),
+                               distill_loss_plain(z, y, g, 0.5))
+    q = torch.rand(2, 9, 32)
+    torch.testing.assert_close(flash_attention(q, q, q, window=3),
+                               attention_plain(q, q, q, window=3))
     assert set(runtime.launch_counts().values()) == {0}
 
 
@@ -129,10 +249,16 @@ def test_wrappers_reject_bad_arguments():
         runtime.on_cuda(a, torch.rand(3, device="meta"))
     with pytest.raises(ValueError):
         runtime.on_cuda(torch.rand(3, device="meta"))
+    q = torch.rand(2, 9, 32)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :8], q)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, window=0)
 
 
 def test_every_kernel_is_registered_with_a_source():
     names = set(runtime.KERNELS)
-    assert names == {"mixup", "distill_fwd", "distill_bwd"}
+    assert names == {"mixup", "distill_fwd", "distill_bwd", "distill_loss",
+                     "flash_attention"}
     for k in runtime.KERNELS.values():
         assert (runtime.SRC_DIR / k.source).is_file()

@@ -1,7 +1,8 @@
 """The reference loader for the port's parity tests.
 
-``load_reference()`` imports the JAX package's round loop, CNN and
-kernels for the ``tests/test_torch_*.py`` files.  Under the installed jax
+``load_reference()`` imports the JAX package's round loop, CNN, LM
+stack, serve driver and kernels for the ``tests/test_torch_*.py``
+files.  Under the installed jax
 ``repro.models.transformer`` cannot be imported: its guard runs
 ``_obar_p not in _batching.primitive_batchers`` and jax 0.9's
 ``PrimitiveBatchersProxy`` has no ``__contains__`` (ROADMAP C1).  The
@@ -42,6 +43,16 @@ _MODULES = {
     "pipeline": "repro.channel.pipeline",
     "payload": "repro.channel.payload",
     "registry": "repro.registry",
+    "configs": "repro.configs",
+    "transformer": "repro.models.transformer",
+    "attention": "repro.models.attention",
+    "kvcache": "repro.models.kvcache",
+    "layers": "repro.models.layers",
+    "rope": "repro.models.rope",
+    "steps": "repro.launch.steps",
+    "serve": "repro.launch.serve",
+    "flash_attention": "repro.kernels.flash_attention",
+    "ops": "repro.kernels.ops",
 }
 
 
@@ -56,6 +67,9 @@ def _load_reference() -> types.SimpleNamespace:
         lambda self, prim: prim in batching.fancy_primitive_batchers)
     try:
         mods = {k: importlib.import_module(v) for k, v in _MODULES.items()}
+        # the config registry fills lazily: fill it while its package is
+        # still in sys.modules, or the registrations land in a new copy
+        mods["configs"]._ensure_loaded()
     finally:
         del proxy.__contains__
     for name in sorted(set(sys.modules) - before, reverse=True):

@@ -42,6 +42,8 @@ def test_keys_split_fold_in_bit_exact(seed):
     ((100, 2), -2, 3),    # synthetic-data roll
     ((16,), 0, 48),       # conversion batch over a seed set
     ((4,), 5, 5),         # empty range returns minval
+    ((64,), 0, 151936),   # qwen2 vocab: spans above 2**16 wrap in uint32
+    ((64,), 3, 70003),
 ])
 def test_randint_bit_exact(shape, lo, hi):
     kj, kt = _k(7)
