@@ -2,9 +2,9 @@
 ``ArchConfig`` (every field, property and ``smoke()``), its input shapes
 and its name registry.
 
-The registry holds the architectures the port runs: ``qwen2-0.5b``
-(the LM serve path) and ``paper-cnn`` (the paper's own model, whose
-layer constants live in ``configs/paper_cnn.py``).  The others of the
+The registry holds the architectures the port runs: ``qwen2-0.5b`` and
+``mamba2-370m`` (the LM serve path) and ``paper-cnn`` (the paper's own
+model, whose layer constants live in ``configs/paper_cnn.py``).  The others of the
 reference arrive with the model families that run them (ROADMAP A15).
 The dry-run ``input_specs`` wait for ``launch/dryrun.py`` (A15).
 """
@@ -223,4 +223,4 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     _LOADED = True
-    from . import paper_cnn, qwen2_0_5b  # noqa: F401
+    from . import mamba2_370m, paper_cnn, qwen2_0_5b  # noqa: F401

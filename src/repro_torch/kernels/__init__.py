@@ -5,6 +5,8 @@ its plain PyTorch version beside it.
   distill_loss    — per-sample (phi, psi) of eq. 3 and its backward, and
                     the fused forward-only loss
   flash_attention — causal flash-attention forward (LM prefill)
+  ssd_scan        — the Mamba2 SSD chunked scan (SSM prefill), with the
+                    final state the cache-building prefill needs
   ops             — the reference's public wrappers over all of them
 
 ``runtime`` builds the CUDA sources (``csrc/``) with nvcc at first use and

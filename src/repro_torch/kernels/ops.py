@@ -8,6 +8,7 @@ import torch
 from .distill_loss import distill_loss as _distill_loss
 from .flash_attention import flash_attention as _flash_attention
 from .mixup_kernel import mixup as _mixup
+from .ssd_scan import ssd_scan as _ssd_scan
 
 
 def _full(n, value, like):
@@ -48,6 +49,6 @@ def flash_attention(q, k, v, *, window=None):
 
 
 def ssd_scan(xdt, Bh, Ch, dA, *, chunk: int = 64):
-    """Mamba2 SSD over (BH, S, .) tensors: not ported yet."""
-    raise NotImplementedError(
-        "ssd_scan (the Mamba2 SSD kernel) is not ported yet: ROADMAP B5")
+    """Mamba2 SSD over (BH, S, .) tensors (see kernels/ssd_scan):
+    per-head B and C, S a multiple of min(chunk, S); returns y."""
+    return _ssd_scan(xdt, Bh, Ch, dA, min(chunk, xdt.shape[1]))

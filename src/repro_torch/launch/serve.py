@@ -1,11 +1,14 @@
-"""Batched LM serving driver: prefill a batch of prompts into a KV cache,
-then decode greedily, on the dense architectures (the smoke preset by
-default; ``--full`` for the published widths).
+"""Batched LM serving driver: prefill a batch of prompts into a cache,
+then decode greedily, on the dense and SSM architectures (qwen2-0.5b,
+mamba2-370m; the smoke preset by default, ``--full`` for the published
+widths).
 
 Usage (on the GPU; ``--device cpu`` runs the plain kernel versions):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --batch 4 --prompt-len 64 --gen 32 [--full]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      [--full]
 
 The federated classifier endpoint (``serve_classifier``) waits for the
 service stack (ROADMAP A11).

@@ -1,4 +1,5 @@
-"""Serving step builders: cache-building prefill and greedy decode.
+"""Serving step builders: cache-building prefill and greedy decode, for
+the dense (KV cache) and SSM (state and conv cache) families.
 
 The reference's train step, its chunked LM loss and the multi-pod
 federated sync steps wait for the training part of ROADMAP A15.
@@ -12,7 +13,8 @@ from ..models.transformer import forward
 
 
 def make_prefill_step(cfg, seq_len: int):
-    """tokens (B, S) -> (last-token logits, filled cache of ``seq_len``)."""
+    """tokens (B, S) -> (last-token logits, filled cache of ``seq_len``;
+    the SSM cache does not depend on ``seq_len``)."""
 
     def prefill_step(params, batch):
         tokens = batch["tokens"]
@@ -25,7 +27,7 @@ def make_prefill_step(cfg, seq_len: int):
 
 
 def make_decode_step(cfg):
-    """One token with a KV cache: greedy-sample and append.  The cache's
+    """One token with a cache: greedy-sample and append.  The cache's
     tensors are updated in place."""
 
     def decode_step(params, batch):

@@ -1,14 +1,19 @@
-"""Decode-time KV cache of the dense family.
+"""Decode-time caches of the dense and SSM families.
 
-Layout, as in the reference: ``{"pos": int, "layers": {"k", "v":
-(L, B, Sc, Hkv, hd)}}``, every per-layer leaf stacked on a leading layer
-axis.  ``Sc`` is ``min(seq_len, sliding_window)``: a sliding-window
-cache is a ring buffer.  ``pos`` (the next position to write) is a
-Python int here; key positions are derived from it
-(:func:`kv_positions`), so empty and ring slots need no stored metadata.
+Layout, as in the reference, every per-layer leaf stacked on a leading
+layer axis:
 
-The MLA, SSM, hybrid and audio caches and the int8 ``kv_quant`` cache
-wait for their families (ROADMAP A15).
+  dense : {"pos": int, "layers": {"k", "v": (L, B, Sc, Hkv, hd)}}
+  ssm   : {"pos": int, "layers": {"state": (L, B, H, N, P) float32,
+                                  "conv": (L, B, k-1, Cd)}}
+
+``Sc`` is ``min(seq_len, sliding_window)``: a sliding-window cache is a
+ring buffer.  ``pos`` (the next position to write) is a Python int here;
+key positions are derived from it (:func:`kv_positions`), so empty and
+ring slots need no stored metadata.
+
+The MLA, hybrid and audio caches and the int8 ``kv_quant`` cache wait
+for their families (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 
 from ..device import resolve_device
 from .layers import dtype_of
+from .mamba2 import conv_dim
 
 
 def cache_len(cfg, seq_len: int) -> int:
@@ -25,6 +31,8 @@ def cache_len(cfg, seq_len: int) -> int:
 
 
 def _check(cfg):
+    if cfg.family == "ssm":
+        return
     if cfg.family != "dense" or cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"cache of family {cfg.family!r} / attention {cfg.attn_type!r}"
@@ -38,7 +46,13 @@ def cache_shapes(cfg, batch: int, seq_len: int):
     """Full cache tree of (shape, dtype) pairs."""
     _check(cfg)
     dt = dtype_of(cfg)
-    kv = (cfg.num_layers, batch, cache_len(cfg, seq_len), cfg.num_kv_heads,
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return {"pos": ((), torch.int64), "layers": {
+            "state": ((L, batch, cfg.ssm_heads, cfg.ssm_state,
+                       cfg.ssm_head_dim), torch.float32),
+            "conv": ((L, batch, cfg.ssm_conv - 1, conv_dim(cfg)), dt)}}
+    kv = (L, batch, cache_len(cfg, seq_len), cfg.num_kv_heads,
           cfg.head_dim)
     return {"pos": ((), torch.int64),
             "layers": {"k": (kv, dt), "v": (kv, dt)}}

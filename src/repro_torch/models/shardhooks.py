@@ -6,7 +6,7 @@ the identity; the multi-GPU slice (ROADMAP A13) installs a function
 through :func:`set_activation_sharding`.
 
 kinds: resid (B,S,D) | heads (B,S,H,d) | kv (B,S,Hkv,d) | logits (B,S,V)
-       scores_seq (B,Hkv,G,T,S)
+       scores_seq (B,Hkv,G,T,S) | ssm_inner (B,S,H,P)
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Architecture assembly of the dense family: init, cache-building
-prefill and single-token decode.
+"""Architecture assembly of the dense and SSM families: init,
+cache-building prefill and single-token decode.
 
 Parameters are a nested dict of tensors with the reference's tree and
 layouts: every block leaf is stacked on a leading layer axis ``(L, ...)``
@@ -7,8 +7,8 @@ and dense weights are ``(in, out)`` applied as ``x @ W``.  The layers run
 as a Python loop over that axis (the reference's ``lax.scan``).
 
 What waits for later slices (ROADMAP A15): the no-cache forward and the
-training step, the MoE, MLA, SSM, hybrid, vlm and audio families,
-learned positions and embedding inputs.
+training step, the MoE, MLA, hybrid, vlm and audio families, learned
+positions and embedding inputs.
 """
 from __future__ import annotations
 
@@ -20,18 +20,23 @@ from ..device import resolve_device
 from . import kvcache
 from .attention import check_supported, gqa_attention, init_attn
 from .layers import apply_norm, dtype_of, embed_init, init_norm
+from .mamba2 import init_mamba, mamba2_forward
 from .mlp import init_mlp, mlp
 from .shardhooks import constrain
 
 
 def _check(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP A15")
     if cfg.embed_input:
         raise NotImplementedError(
             "embedding inputs (embed_input) are not ported yet: ROADMAP A15")
-    check_supported(cfg)
+    if cfg.family == "dense":
+        check_supported(cfg)
+    elif cfg.pos_emb != "rope":
+        raise NotImplementedError(
+            f"pos_emb={cfg.pos_emb!r} is not ported yet: ROADMAP A15")
 
 
 # ---------------------------------------------------------------------------
@@ -45,6 +50,11 @@ def _init_block(cfg, key):
             "ln2": init_norm(cfg, cfg.d_model, dev),
             "attn": init_attn(cfg, ks[0]),
             "mlp": init_mlp(cfg, ks[1])}
+
+
+def _init_mamba_block(cfg, key):
+    return {"ln": init_norm(cfg, cfg.d_model, key.device),
+            "mamba": init_mamba(cfg, key)}
 
 
 def _map(fn, *trees):
@@ -64,10 +74,11 @@ def init_params(cfg, key, device=None):
          "embed": embed_init(ks[0], cfg.vocab_size, cfg.d_model, dt)}
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(ks[1], cfg.vocab_size, cfg.d_model, dt).T
+    init_layer = _init_mamba_block if cfg.family == "ssm" else _init_block
     # jax.vmap over the layer keys: one layer at a time into the stack
     blocks = None
     for i, k in enumerate(rng.split(ks[3], cfg.num_layers).unbind(0)):
-        layer = _init_block(cfg, k)
+        layer = init_layer(cfg, k)
         if blocks is None:
             blocks = _map(lambda t: t.new_empty((cfg.num_layers,) + t.shape),
                           layer)
@@ -118,6 +129,13 @@ def _attn_block(cfg, p, x, q_pos, kv_pos, cache):
     return x + mlp(cfg, p["mlp"], h), cache
 
 
+def _mamba_block(cfg, p, x, cache):
+    x = constrain(x, "resid")
+    h = apply_norm(cfg, p["ln"], x)
+    y, cache = mamba2_forward(cfg, p["mamba"], h, cache)
+    return x + y, cache
+
+
 def forward(cfg, params, batch, cache=None):
     """Returns (logits (B, T, V), aux_loss, new_cache).
 
@@ -134,21 +152,24 @@ def forward(cfg, params, batch, cache=None):
     x = params["embed"][tokens]
 
     pos0 = int(cache["pos"])
-    K, V = cache["layers"]["k"], cache["layers"]["v"]
-    Sc = K.shape[2]
-    q_pos = (pos0 + torch.arange(T, device=dev)).expand(B, T)
-    if T == 1:
-        kv_pos = kvcache.kv_positions(cfg, pos0, Sc, B, dev)
-    else:
-        kv_pos = q_pos   # prefill: attention over the live keys
-
+    layers = cache["layers"]
     blocks = params["blocks"]
-    for i in range(cfg.num_layers):
-        lp = _map(lambda t: t[i], blocks)
-        x, _ = _attn_block(cfg, lp, x, q_pos, kv_pos,
-                           {"k": K[i], "v": V[i]})
+    if cfg.family == "ssm":   # no positions: the state carries the past
+        for i in range(cfg.num_layers):
+            x, _ = _mamba_block(cfg, _map(lambda t: t[i], blocks), x,
+                                {k: v[i] for k, v in layers.items()})
+    else:
+        Sc = layers["k"].shape[2]
+        q_pos = (pos0 + torch.arange(T, device=dev)).expand(B, T)
+        if T == 1:
+            kv_pos = kvcache.kv_positions(cfg, pos0, Sc, B, dev)
+        else:
+            kv_pos = q_pos   # prefill: attention over the live keys
+        for i in range(cfg.num_layers):
+            x, _ = _attn_block(cfg, _map(lambda t: t[i], blocks), x, q_pos,
+                               kv_pos, {k: v[i] for k, v in layers.items()})
 
     x = apply_norm(cfg, params["final_norm"], constrain(x, "resid"))
     logits = constrain(x @ unembed_matrix(cfg, params), "logits")
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    return logits, aux, {"pos": pos0 + T, "layers": {"k": K, "v": V}}
+    return logits, aux, {"pos": pos0 + T, "layers": layers}

@@ -23,6 +23,7 @@ from repro_torch.kernels.distill_loss import (distill_loss,
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention)
 from repro_torch.kernels.mixup_kernel import mixup, mixup_plain
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.launch.serve import serve
 from repro_torch.models import CNN
 
@@ -151,4 +152,87 @@ def test_serve_smoke_on_gpu_matches_cpu(gpu):
     got = serve("qwen2-0.5b", 2, 64, 6, smoke=True, device=gpu)
     assert runtime.launch_counts()["flash_attention"] == 2   # two layers
     want = serve("qwen2-0.5b", 2, 64, 6, smoke=True, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+def _ssd_inputs(gpu, bh, s, p, n, hpg, seed):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    xdt = 0.5 * torch.randn(bh, s, p, generator=g, device=gpu)
+    B, C = (0.5 * torch.randn(bh // hpg, s, n, generator=g, device=gpu)
+            for _ in range(2))
+    dA = -torch.nn.functional.softplus(
+        torch.randn(bh, s, generator=g, device=gpu))
+    return xdt, B, C, dA
+
+
+# the reference's own tolerance for its SSD kernel (float32, another
+# summation order and cumsum)
+SSD_TOL = dict(atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk,hpg", [
+    (128, 1024, 64, 128, 256, 32),   # mamba2-370m prefill, batch 4
+    (32, 64, 32, 16, 32, 16),        # mamba2-370m smoke, prompt 40 padded
+    (8, 512, 64, 128, 128, 1),       # a chunk below 256
+    (1, 256, 64, 128, 256, 1),       # one row
+    (2, 128, 32, 16, 32, 1),         # the reference's kernel test shapes
+    (4, 256, 64, 32, 64, 1),
+    (1, 64, 16, 8, 16, 1),
+    (6, 96, 8, 4, 96, 2),            # a chunk that is no multiple of 64
+])
+def test_ssd_scan_kernel_matches_plain(gpu, bh, s, p, n, chunk, hpg):
+    xdt, B, C, dA = _ssd_inputs(gpu, bh, s, p, n, hpg, s + p)
+    before = runtime.KERNELS["ssd_scan"].launches
+    y, state = ssd_scan(xdt, B, C, dA, chunk, final=True,
+                        heads_per_group=hpg)
+    y_only = ssd_scan(xdt, B, C, dA, chunk, heads_per_group=hpg)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["ssd_scan"].launches == before + 2
+    want_y, want_state = ssd_scan_plain(xdt, B, C, dA, chunk, hpg)
+    torch.testing.assert_close(y, want_y, **SSD_TOL)
+    torch.testing.assert_close(state, want_state, **SSD_TOL)
+    assert torch.equal(y, y_only)
+    init = torch.randn(bh, n, p, device=gpu)
+    y, state = ssd_scan(xdt, B, C, dA, chunk, final=True,
+                        heads_per_group=hpg, initial_state=init)
+    want_y, want_state = ssd_scan_plain(xdt, B, C, dA, chunk, hpg, init)
+    torch.testing.assert_close(y, want_y, **SSD_TOL)
+    torch.testing.assert_close(state, want_state, **SSD_TOL)
+
+
+def test_ssd_scan_kernel_keeps_rows_apart(gpu):
+    """The state starts at zero for every row (the reference's
+    test_ssd_kernel_state_isolated_between_batch_rows)."""
+    g = torch.Generator(device=gpu).manual_seed(7)
+    xdt, B, C = (torch.randn(3, 64, d, generator=g, device=gpu)
+                 for d in (8, 4, 4))
+    dA = -torch.randn(3, 64, generator=g, device=gpu).abs()
+    full, fs = ssd_scan(xdt, B, C, dA, 16, final=True)
+    solo, ss = ssd_scan(xdt[1:2], B[1:2], C[1:2], dA[1:2], 16, final=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(full[1], solo[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(fs[1], ss[0], rtol=0, atol=1e-5)
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(gpu):
+    xdt, B, C, dA = _ssd_inputs(gpu, 2, 128, 32, 16, 1, 0)
+    for args in (
+            (xdt.double(), B.double(), C.double(), dA.double(), 32),
+            (xdt, B, C, dA, 48),                      # S % chunk
+            (xdt[:, :, :24].contiguous(), B, C, dA, 32),   # P = 24
+            (xdt, B.transpose(0, 1).contiguous().transpose(0, 1), C, dA,
+             32),                                     # not contiguous
+            (xdt.repeat(1, 4, 1), B.repeat(1, 4, 1), C.repeat(1, 4, 1),
+             dA.repeat(1, 4), 512)):                  # chunk > 256
+        with pytest.raises(ValueError):
+            ssd_scan(*args)
+    with pytest.raises(ValueError):
+        ssd_scan(xdt, B, C, dA.cpu(), 32)
+
+
+def test_mamba2_serve_smoke_on_gpu_matches_cpu(gpu):
+    runtime.reset_launch_counts()
+    got = serve("mamba2-370m", 2, 40, 6, smoke=True, device=gpu)
+    assert runtime.launch_counts()["ssd_scan"] == 2   # two layers
+    want = serve("mamba2-370m", 2, 40, 6, smoke=True, device="cpu")
     assert torch.equal(got.cpu(), want)

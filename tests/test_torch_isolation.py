@@ -59,4 +59,11 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         init_cache(cfg, 2, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve("qwen2-0.5b", 2, 8, 2)
+    ssm = get_config("mamba2-370m-smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(ssm, rng.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(ssm, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve("mamba2-370m", 2, 8, 2)
     assert resolve_device("cpu") == torch.device("cpu")

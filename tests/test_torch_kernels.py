@@ -19,6 +19,7 @@ from repro_torch.kernels.distill_loss import (distill_loss,
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention)
 from repro_torch.kernels.mixup_kernel import mixup, mixup_plain
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from test_torch_reference import load_reference
 
 # float32 on both sides: the same elementwise arithmetic, the tolerance
@@ -207,9 +208,18 @@ def test_ops_wrappers_match_reference_ops():
         np.asarray(ref.ops.flash_attention(
             *(jnp.asarray(t) for t in (q, k, v)), window=32)),
         rtol=0, atol=F32_ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        ops.ssd_scan(*(torch.zeros(1, 4, 2) for _ in range(3)),
-                     torch.zeros(1, 4))
+    # the SSD scan: per-head B/C, chunk min(64, S), y only; the
+    # reference's kernel tolerance
+    rs = np.random.default_rng(9)
+    for s in (128, 48):
+        xdt, B, C = (0.5 * rs.standard_normal((3, s, d)).astype(np.float32)
+                     for d in (32, 16, 16))
+        dA = -np.log1p(np.exp(rs.standard_normal((3, s)))).astype(np.float32)
+        got = ops.ssd_scan(*(torch.tensor(t) for t in (xdt, B, C, dA)))
+        want = ref.ops.ssd_scan(*(jnp.asarray(t) for t in (xdt, B, C, dA)))
+        assert tuple(got.shape) == (3, s, 32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-4, rtol=1e-3)
 
 
 def test_distill_loss_refuses_gradients():
@@ -236,6 +246,11 @@ def test_cpu_tensors_take_the_plain_versions():
     q = torch.rand(2, 9, 32)
     torch.testing.assert_close(flash_attention(q, q, q, window=3),
                                attention_plain(q, q, q, window=3))
+    x, dA = torch.rand(4, 64, 8), -torch.rand(4, 64)
+    b = torch.rand(2, 64, 4)
+    y, st = ssd_scan(x, b, b, dA, 16, final=True, heads_per_group=2)
+    want = ssd_scan_plain(x, b, b, dA, 16, heads_per_group=2)
+    torch.testing.assert_close((y, st), want)
     assert set(runtime.launch_counts().values()) == {0}
 
 
@@ -254,11 +269,20 @@ def test_wrappers_reject_bad_arguments():
         flash_attention(q, q[:, :8], q)
     with pytest.raises(ValueError):
         flash_attention(q, q, q, window=0)
+    x, dA, b = torch.rand(4, 64, 8), -torch.rand(4, 64), torch.rand(4, 64, 4)
+    with pytest.raises(ValueError):
+        ssd_scan(x, b, b, dA, 48)                  # S % chunk
+    with pytest.raises(ValueError):
+        ssd_scan(x, b[:, :32], b[:, :32], dA, 16)  # S of B differs
+    with pytest.raises(ValueError):
+        ssd_scan(x, b, b, dA, 16, heads_per_group=3)
+    with pytest.raises(ValueError):
+        ssd_scan(x, b, b, dA, 16, initial_state=torch.zeros(4, 8, 4))
 
 
 def test_every_kernel_is_registered_with_a_source():
     names = set(runtime.KERNELS)
     assert names == {"mixup", "distill_fwd", "distill_bwd", "distill_loss",
-                     "flash_attention"}
+                     "flash_attention", "ssd_scan"}
     for k in runtime.KERNELS.values():
         assert (runtime.SRC_DIR / k.source).is_file()

@@ -66,7 +66,7 @@ def _ref_params(cfg, seed=0):
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "paper-cnn"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-370m", "paper-cnn"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_arch_config_fields_match_reference(name, smoke):
     ref = load_reference()
@@ -348,8 +348,8 @@ def test_synthetic_tokens_bit_exact(n, T, vocab):
 
 
 @pytest.mark.parametrize("change", [
-    dict(attn_type="mla"), dict(family="moe"), dict(family="ssm"),
-    dict(family="hybrid"), dict(family="vlm"), dict(family="audio"),
+    dict(attn_type="mla"), dict(family="moe"), dict(family="hybrid"),
+    dict(family="vlm"), dict(family="audio"),
     dict(kv_quant=True), dict(cross_attention=True), dict(mrope=True),
     dict(embed_input=True), dict(qk_norm=True), dict(pos_emb="learned"),
 ])

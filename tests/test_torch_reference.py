@@ -1,7 +1,7 @@
 """The reference loader for the port's parity tests.
 
 ``load_reference()`` imports the JAX package's round loop, CNN, LM
-stack, serve driver and kernels for the ``tests/test_torch_*.py``
+stack (dense and Mamba2), serve driver and kernels for the ``tests/test_torch_*.py``
 files.  Under the installed jax
 ``repro.models.transformer`` cannot be imported: its guard runs
 ``_obar_p not in _batching.primitive_batchers`` and jax 0.9's
@@ -53,6 +53,8 @@ _MODULES = {
     "serve": "repro.launch.serve",
     "flash_attention": "repro.kernels.flash_attention",
     "ops": "repro.kernels.ops",
+    "mamba2": "repro.models.mamba2",
+    "ssd_scan": "repro.kernels.ssd_scan",
 }
 
 

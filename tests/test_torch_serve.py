@@ -1,5 +1,7 @@
 """The port's LM serve driver end to end against the reference's, on the
-CPU at the qwen2-0.5b smoke config (2 layers, d_model 256, vocab 512).
+CPU at the qwen2-0.5b smoke config (2 layers, d_model 256, vocab 512)
+and the mamba2-370m smoke config (2 layers, d_model 256, 16 SSM heads of
+32, state 16, chunk 32, vocab 512).
 
 float32: both draw the weights from PRNGKey(0) and the prompts from
 PRNGKey(1) (the port through its threefry, weights within 4 float32
@@ -12,6 +14,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro_torch import configs, rng
@@ -102,3 +105,50 @@ def test_serve_main_runs_on_the_cpu(capsys):
                      "--prompt-len", "8", "--gen", "2", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "params=1.90M" in out and "sample continuation" in out
+
+
+# the reference's serve("mamba2-370m", 2, 40, 6) on the smoke config
+MAMBA2_TOKENS = [[274, 355, 209, 166, 369, 506],
+                 [441, 328, 178, 156, 178, 478]]
+
+
+def test_mamba2_serve_gives_the_reference_tokens():
+    """Prompt 40 with chunk 32: the prefill pads to two chunks."""
+    ref = load_reference()
+    want = ref.serve.serve("mamba2-370m", 2, 40, 6, smoke=True, log=_quiet)
+    lines = []
+    got = port_serve.serve("mamba2-370m", 2, 40, 6, smoke=True,
+                           log=lines.append, device="cpu")
+    np.testing.assert_array_equal(np.asarray(want), MAMBA2_TOKENS)
+    np.testing.assert_array_equal(got.numpy(), MAMBA2_TOKENS)
+    assert lines[0] == "arch=mamba2-370m params=1.08M batch=2 prompt=40 gen=6"
+
+
+@pytest.mark.parametrize("prompt", [40, 64])
+def test_mamba2_prefill_logits_and_cache_match_reference(prompt):
+    ref = load_reference()
+    cfg = configs.get_config("mamba2-370m-smoke")
+    rcfg = ref.configs.get_config("mamba2-370m-smoke")
+    pj = ref.transformer.init_params(rcfg, jax.random.PRNGKey(0))
+    prompts = ref.synthetic.synthetic_tokens(jax.random.PRNGKey(1), 2,
+                                             prompt, cfg.vocab_size)
+    lj, cj = jax.jit(ref.steps.make_prefill_step(rcfg, prompt + 6))(
+        pj, {"tokens": prompts})
+    pt = transformer.init_params(cfg, rng.PRNGKey(0), device="cpu")
+    toks = synthetic_tokens(rng.PRNGKey(1), 2, prompt, cfg.vocab_size,
+                            device="cpu")
+    lt, ct = make_prefill_step(cfg, prompt + 6)(pt, {"tokens": toks})
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0,
+                               atol=1e-4)
+    assert ct["pos"] == int(cj["pos"]) == prompt
+    for k in ("state", "conv"):
+        np.testing.assert_allclose(ct["layers"][k].numpy(),
+                                   np.asarray(cj["layers"][k]), rtol=0,
+                                   atol=1e-4)
+
+
+def test_serve_main_runs_mamba2_on_the_cpu(capsys):
+    port_serve.main(["--arch", "mamba2-370m", "--batch", "1",
+                     "--prompt-len", "8", "--gen", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "params=1.08M" in out and "sample continuation" in out
