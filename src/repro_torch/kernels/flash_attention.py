@@ -8,6 +8,11 @@ window, scale 1/sqrt(d).  Returns (BH, S, dv) in q's dtype.
 for CUDA tensors and runs :func:`attention_plain` (the reference's
 ``attention_ref``) for CPU tensors.  Unlike the reference's Pallas
 wrapper, any S works: the kernel masks the tail itself.
+
+On the GPU the dtype picks the route inside the same entry point:
+bfloat16 runs on the tensor cores (wgmma, K/V tiles by TMA), float32 on
+the CUDA cores in full float32 (a TF32 product would not keep the
+float32 smoke configs' logits within ~1e-6 of the CPU's).
 """
 from __future__ import annotations
 
@@ -62,6 +67,10 @@ def flash_attention(q, k, v, window=None):
             f"d={d}, dv={dv}")
     require(all(t.is_contiguous() for t in (q, k, v)),
             "flash_attention kernel operands must be contiguous")
+    require(q.dtype != torch.bfloat16
+            or all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+            "flash_attention bfloat16 operands must start on a 16-byte "
+            "boundary (the kernel reads them with TMA)")
     out = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
     if out.numel():
         KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -55,6 +55,27 @@ def test_mixup_kernel_matches_plain(gpu, n, f):
                                atol=0)
 
 
+@pytest.mark.parametrize("n,f", [(7, 3), (9, 5), (5, 1023), (100, 784)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixup_kernel_is_bit_equal_to_plain(gpu, n, f, dtype):
+    """Widths off the 16-byte vector (the scalar ends of a row), odd F in
+    bfloat16, and row slices of a larger tensor, whose bases lie off a
+    16-byte boundary unless 16 bytes divide a row: every element equal
+    to the plain version's."""
+    g = torch.Generator(device=gpu).manual_seed(f)
+    big_a, big_b = (torch.rand(n + 2, f, generator=g, device=gpu).to(dtype)
+                    for _ in range(2))
+    la = torch.rand(n, generator=g, device=gpu) * 2.0 - 0.5
+    for a, b in ((big_a[:n], big_b[:n]), (big_a[1:n + 1], big_b[2:])):
+        assert a.is_contiguous() and b.is_contiguous()
+        before = runtime.KERNELS["mixup"].launches
+        got = mixup(a, b, la, 1.0 - la)
+        torch.cuda.synchronize()
+        assert runtime.KERNELS["mixup"].launches == before + 1
+        assert got.dtype == dtype
+        assert torch.equal(got, mixup_plain(a, b, la, 1.0 - la))
+
+
 @pytest.mark.parametrize("n,c", [(160, 10), (33, 12), (7, 70)])
 def test_distill_kernels_match_plain(gpu, n, c):
     g_ = torch.Generator(device=gpu).manual_seed(c)
@@ -129,6 +150,49 @@ def test_flash_attention_kernel_matches_plain(gpu, bh, s, d, dtype, window,
     torch.testing.assert_close(got.float(),
                                attention_plain(q, k, v, window).float(),
                                rtol=0, atol=atol)
+
+
+# bfloat16 runs on the tensor-core kernel (128-query, 128-key tiles):
+# head dims, lengths off the tile, windows and batch sizes, each against
+# the plain version at the bf16 tolerance above
+@pytest.mark.parametrize("bh,s,d,dv,window", [
+    (4, 256, 32, 32, None),
+    (4, 256, 128, 128, None),
+    (4, 256, 64, 128, None),
+    (4, 256, 128, 32, None),
+    (2, 1, 64, 64, None),
+    (3, 70, 64, 64, None),
+    (3, 127, 32, 32, None),
+    (3, 129, 128, 128, None),
+    (2, 1000, 64, 64, None),
+    (4, 512, 64, 64, 1),
+    (4, 512, 64, 64, 128),
+    (4, 512, 128, 128, 128),
+    (1, 1024, 64, 64, None),
+    (57, 256, 64, 64, None),
+])
+def test_flash_attention_bf16_kernel_matches_plain(gpu, bh, s, d, dv,
+                                                   window):
+    g = torch.Generator(device=gpu).manual_seed(s + d)
+    q, k = (torch.randn(bh, s, d, generator=g, device=gpu).bfloat16()
+            for _ in range(2))
+    v = torch.randn(bh, s, dv, generator=g, device=gpu).bfloat16()
+    before = runtime.KERNELS["flash_attention"].launches
+    got = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["flash_attention"].launches == before + 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (bh, s, dv)
+    torch.testing.assert_close(got.float(),
+                               attention_plain(q, k, v, window).float(),
+                               rtol=0, atol=2 * 2.0 ** -6)
+
+
+def test_flash_attention_refuses_misaligned_bf16(gpu):
+    buf = torch.randn(2 * 64 * 64 + 1, device=gpu).bfloat16()
+    q = buf[1:].view(2, 64, 64)          # contiguous, 2 bytes off 16
+    assert q.is_contiguous()
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
 
 
 @pytest.mark.parametrize("n,c", [(160, 10), (33, 12), (1000, 10)])

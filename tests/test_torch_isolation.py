@@ -1,6 +1,7 @@
-"""The port stands alone: no module of src/repro_torch, and not
-chip_smoke.py, imports jax or anything of the reference package; and
-its entry points run on the GPU unless asked for the CPU."""
+"""The port stands alone: no module of src/repro_torch, and neither
+chip_smoke.py nor the scripts under tools/, imports jax or anything of
+the reference package; and its entry points run on the GPU unless asked
+for the CPU."""
 import ast
 from pathlib import Path
 
@@ -19,7 +20,7 @@ from repro_torch.models.transformer import init_params
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imports(path):
