@@ -68,6 +68,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 // ---------------------------------------------------------------------------
 // float32: the CUDA-core kernel
 // ---------------------------------------------------------------------------
@@ -315,6 +317,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BQ = 128;                  // query rows per CTA, 64 per warpgroup
 constexpr int BK = 128;                  // keys per K/V tile
 constexpr int CONSUMERS = 256;           // two consumer warpgroups
@@ -351,83 +355,6 @@ struct Layout {
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// ---- mbarriers ----
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// Wait for the phase of the given parity to complete.  A wait that has
-// not completed after ~2^34 cycles (seconds) traps instead of hanging.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  long long start = -1;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (start < 0) start = now;
-    else if (now - start > (1ll << 34)) __trap();
-  }
-}
-
-// ---- TMA: boxes of a (bh, s, cols) tensor to and from shared memory ----
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row,
-                                         int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(bh)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int col, int row,
-                                          int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4}], [%1];\n" ::"l"((uint64_t)map),
-      "r"(smem_u32(src)), "r"(col), "r"(row), "r"(bh)
-      : "memory");
-}
-
-// ---- wgmma ----
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle of a chunk of `cols` columns
-// (layout 1: 128-byte, 2: 64-byte).  The tiles are 1024-byte aligned, so
-// the base offset is 0.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int cols) {
-  const uint64_t layout = cols == 64 ? 1 : 2;
-  return (uint64_t)((addr >> 4) & 0x3FFF) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
 // K-major operand [rows][width] in chunks of `cols`: the 16 columns of
 // k-step kk.  Within a chunk the swizzle is applied to the absolute
 // address, so a k-step is a 32-byte advance of the start address.
@@ -435,7 +362,7 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int kk,
                                                 int rows, int cols) {
   const int chunk = kk * 16 / cols, within = kk * 16 % cols;
   return make_desc(base + chunk * rows * cols * 2 + within * 2, 16,
-                   8 * cols * 2, cols);
+                   8 * cols * 2, cols * 2);
 }
 // MN-major operand [keys][width] (V: keys are the k dimension): keys
 // 16kk..16kk+15, 8-key groups 8 rows apart (SBO), column chunks a chunk
@@ -443,33 +370,7 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int kk,
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t base, int kk,
                                                  int rows, int cols) {
   return make_desc(base + kk * 16 * cols * 2, rows * cols * 2, 8 * cols * 2,
-                   cols);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_one() {  // all but the newest group
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-// Pin registers at this point of the program: the compiler may neither
-// move their reads or writes across an asynchronous wgmma's issue or wait
-// nor give them to other values while a wgmma still reads them.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+                   cols * 2);
 }
 
 // d[0..64) (+)= A(64x16, smem desc) . B(128x16, smem desc)^T
@@ -911,31 +812,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The (bh, s, cols) bf16 tensor at ptr, in boxes of `rows` x one swizzle

@@ -4,7 +4,7 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``.  The
 build runs at first use (or through :func:`build`), one ``nvcc`` per
 source, all started together, into ``build/repro_torch/`` at the root of
-the checkout, keyed by a hash of the source and the flags.
+the checkout, keyed by a hash of the source, the headers and the flags.
 
 Dispatch rule (:func:`on_cuda`): tensors on a CUDA device launch the
 kernel, or raise; tensors on the CPU take the plain PyTorch version.
@@ -44,7 +44,10 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> Path:
-    text = (SRC_DIR / source).read_bytes()
+    """The library's path, keyed by the source, every header of csrc/
+    (a source may include any of them) and the flags."""
+    text = (SRC_DIR / source).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

@@ -13,7 +13,12 @@ row ``bh // heads_per_group`` (the model's grouped B and C, without the
 repeat to every head); dA: (BH, S), <= 0.
 
 :func:`ssd_scan` launches the CUDA kernel ``csrc/ssd_scan.cu`` for CUDA
-tensors and runs :func:`ssd_scan_plain` for CPU tensors.  Beyond the
+tensors and runs :func:`ssd_scan_plain` for CPU tensors.  The kernel runs
+on the tensor cores in 3xTF32 (float32 accuracy) as three passes: each
+chunk's own end state, a short sequential pass over the chunks for the
+state entering each, and the chunks' outputs, all chunks in parallel.
+The wrapper allocates the passes' scratch, (BH, S / chunk, P, N) states
+and (BH, S / chunk) decays, and frees it when the call returns.  Beyond the
 reference's ``ssd_scan_pallas``, which returns y from a zero state, it
 can start from a given state and return the state after the last chunk,
 which the model's cache-building prefill hands to decode.
@@ -33,7 +38,7 @@ MAX_CHUNK = 256
 
 KERNEL = CudaKernel(
     "ssd_scan", "ssd_scan.cu", "ssd_scan_launch",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6)
+    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 6)
 
 
 def ssd_scan_plain(xdt, Bh, Ch, dA, chunk: int, heads_per_group: int = 1,
@@ -98,11 +103,17 @@ def ssd_scan(xdt, Bh, Ch, dA, chunk: int, final: bool = False,
             f"ssd_scan kernel takes (P, N) in {SHAPES}, got {(p, n)}")
     require(all(t.is_contiguous() for t in (xdt, Bh, Ch, dA, *init)),
             "ssd_scan kernel operands must be contiguous")
+    require(all(t.data_ptr() % 16 == 0 for t in (xdt, Bh, Ch)),
+            "ssd_scan kernel reads xdt, B and C by TMA: their data must "
+            "start on a 16-byte boundary")
     y = torch.empty_like(xdt)
     state = (torch.empty((bh, n, p), dtype=torch.float32, device=xdt.device)
              if final else None)
+    nc = s // chunk
+    scratch = torch.empty(bh * nc * (n * p + 1), dtype=torch.float32,
+                          device=xdt.device)
     KERNEL.launch(xdt.device, xdt.data_ptr(), Bh.data_ptr(), Ch.data_ptr(),
                   dA.data_ptr(), init[0].data_ptr() if init else None,
                   y.data_ptr(), state.data_ptr() if final else None,
-                  bh, s, p, n, chunk, heads_per_group)
+                  scratch.data_ptr(), bh, s, p, n, chunk, heads_per_group)
     return (y, state) if final else y

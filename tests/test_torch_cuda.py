@@ -264,6 +264,37 @@ def test_ssd_scan_kernel_matches_plain(gpu, bh, s, p, n, chunk, hpg):
     torch.testing.assert_close(state, want_state, **SSD_TOL)
 
 
+def test_ssd_scan_kernel_launches_once_and_frees_its_scratch(gpu):
+    """One wrapper call is one count, whatever the kernel launches inside;
+    the passes' scratch lives only for the call (the kernel allocates
+    nothing), so what stays allocated is y and the final state."""
+    bh, s, p, n, chunk, hpg = 128, 1024, 64, 128, 256, 32
+    xdt, B, C, dA = _ssd_inputs(gpu, bh, s, p, n, hpg, 5)
+    torch.cuda.synchronize()
+    before_bytes = torch.cuda.memory_allocated(gpu)
+    before = runtime.KERNELS["ssd_scan"].launches
+    y, state = ssd_scan(xdt, B, C, dA, chunk, final=True,
+                        heads_per_group=hpg)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["ssd_scan"].launches == before + 1
+    assert (torch.cuda.memory_allocated(gpu) - before_bytes
+            == y.untyped_storage().nbytes() + state.untyped_storage().nbytes())
+    want_y, want_state = ssd_scan_plain(xdt, B, C, dA, chunk, hpg)
+    torch.testing.assert_close(y, want_y, **SSD_TOL)
+    torch.testing.assert_close(state, want_state, **SSD_TOL)
+
+
+def test_ssd_scan_kernel_refuses_a_misaligned_base(gpu):
+    """x, B and C are read by TMA, which needs 16-byte aligned data."""
+    xdt, B, C, dA = _ssd_inputs(gpu, 2, 64, 8, 4, 1, 1)
+    flat = torch.zeros(xdt.numel() + 1, device=gpu)
+    flat[1:] = xdt.reshape(-1)
+    off = flat[1:].view(xdt.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    with pytest.raises(ValueError):
+        ssd_scan(off, B, C, dA, 16)
+
+
 def test_ssd_scan_kernel_keeps_rows_apart(gpu):
     """The state starts at zero for every row (the reference's
     test_ssd_kernel_state_isolated_between_batch_rows)."""

@@ -286,3 +286,24 @@ def test_every_kernel_is_registered_with_a_source():
                      "flash_attention", "ssd_scan"}
     for k in runtime.KERNELS.values():
         assert (runtime.SRC_DIR / k.source).is_file()
+
+
+def test_library_key_covers_every_header(tmp_path, monkeypatch):
+    """A library is keyed by its source, every header of csrc/ and the
+    flags: an edited shared header (hopper.cuh) rebuilds the libraries
+    that include it instead of loading a stale one."""
+    for f in runtime.SRC_DIR.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(runtime, "SRC_DIR", tmp_path)
+    sources = ("ssd_scan.cu", "flash_attention.cu", "mixup.cu")
+    keys = {src: runtime._target(src) for src in sources}
+    assert len(set(keys.values())) == len(sources)
+    assert {src: runtime._target(src) for src in sources} == keys
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert all(runtime._target(src) != keys[src] for src in sources)
+    edited = {src: runtime._target(src) for src in sources}
+    (tmp_path / "mixup.cu").write_text(
+        (tmp_path / "mixup.cu").read_text() + "\n// edited\n")
+    assert runtime._target("mixup.cu") != edited["mixup.cu"]
+    assert runtime._target("ssd_scan.cu") == edited["ssd_scan.cu"]

@@ -14,12 +14,14 @@ call, ending in ``torch.cuda.synchronize()``).  Prints each turn's median
 and, per checkout, the median over all its calls and the difference.
 Each turn then traces five more calls with ``torch.profiler`` and prints
 the device's busy time per call (the sum of its kernels' device time)
-and the kernels that take the most.  Needs a CUDA GPU.
+and the kernels that take the most, then the port's own kernels (the
+hand-written CUDA ones) with their share.  Needs a CUDA GPU.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -28,6 +30,15 @@ from pathlib import Path
 
 THIS = Path(__file__).resolve().parents[1]
 BATCH, PROMPT, GEN = 4, 1024, 32
+# the kernels of src/repro_torch/csrc that a prefill launches, by name
+PORT_KERNELS = re.compile(r"flash_fwd|ssd_scan_kernel|chunk_states|"
+                          r"state_pass|chunk_scan")
+
+
+def short(kernel: str) -> str:
+    """A kernel's name without return type, namespace and arguments."""
+    return (kernel.removeprefix("void ")
+            .replace("(anonymous namespace)::", "").split("(")[0])
 
 
 def device_busy(step, args, calls=5):
@@ -121,6 +132,11 @@ def main() -> int:
             print(f"  device busy {busy:.3f} ms per call; largest: "
                   + "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in kernels[:6]),
                   flush=True)
+            port = [(k, ms) for k, ms in kernels if PORT_KERNELS.search(k)]
+            mine = sum(ms for _, ms in port)
+            print(f"  port kernels {mine:.3f} ms per call "
+                  f"({100 * mine / busy:.1f}% of busy): "
+                  + "; ".join(f"{short(k)} {ms:.3f}" for k, ms in port))
     med = {k: statistics.median(v) for k, v in runs.items()}
     print(json.dumps({"arch": args.arch, "median_ms": med,
                       "this_minus_other_ms": med["this"] - med["other"]}))
