@@ -7,9 +7,11 @@ weighted aggregation over the successful set, and — for the FLD family
 
 The device axis is explicit: parameters are stacked ``(D, ...)`` and
 the CNN runs the whole population as one grouped convolution
-(``CNN.apply_stacked``), where the reference vmaps over devices.  Local
-SGD sends every device's logits through the distill kernel pair as one
-``(D*B, C)`` batch.  ``FederatedTrainer.run`` loops over
+(``CNN.apply_stacked``), where the reference vmaps over devices.  A
+local SGD step sends every device's logits through one launch of the
+fused distill step kernel, and on the GPU the steps of local SGD and of
+the eq. (5) conversion are replays of a captured CUDA graph
+(``core/graphs.py``).  ``FederatedTrainer.run`` loops over
 :meth:`FederatedTrainer.round_once` directly (the reference's
 ``LoopRoundProgram`` at depth 1).
 
@@ -27,7 +29,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import rng
 from ..channel import ChannelConfig
@@ -37,9 +38,10 @@ from ..channel.pipeline import (LinkPlan, downlink_gout, downlink_params,
 from ..data.pipeline import TaskSpec, parse_task
 from ..device import resolve_device
 from ..models.cnn import CNN
-from ..kernels.distill_loss import distill_phi_psi
+from ..kernels.distill_loss import distill_step
 from ..registry import FLD_FAMILY, PROTOCOLS, canonical_protocol  # noqa: F401
-from .conversion import output_to_model
+from .conversion import OutputToModel
+from .graphs import CapturedSteps
 from .seed_prep import collect_seeds, summarize_seeds
 from .state import RoundState
 
@@ -142,44 +144,81 @@ def make_local_train(apply_stacked, num_classes: int, local_iters: int,
     n_loc) -> (params, favg (D, C, C), cnt (D, C), mean loss (D,))`` with
     ``params`` leaves (D, ...), x (D, n, ...), y (D, n) int64, keys
     (D, 2), gout (D, C, C).  Device d draws its batches from keys[d]
-    exactly as the reference's vmapped scan does.
+    exactly as the reference's vmapped scan does.  ``params`` is not
+    changed; the returned tensors are the caller's own.
     """
-    C = num_classes
+    return LocalTrain(apply_stacked, num_classes, local_iters, local_batch)
 
-    def local_train(params, x, y, keys, gout, use_kd, eta, beta, n_loc):
-        D, B = x.shape[0], local_batch
-        idx = rng.randint(rng.split(keys, local_iters), (B,), 0, n_loc)
-        dev = torch.arange(D, device=x.device)[:, None]
-        b = beta if use_kd else 0.0
-        leaves = [t.requires_grad_(True) for v in params.values()
-                  for t in v.values()]
-        out_sum = torch.zeros(D, C, C, device=x.device)
-        cnt = torch.zeros(D, C, device=x.device)
-        losses = torch.empty(D, local_iters, device=x.device)
-        for k in range(local_iters):
-            xb, yb = x[dev, idx[:, k]], y[dev, idx[:, k]]   # (D, B, ...)
-            logits = apply_stacked(params, xb)               # (D, B, C)
-            # every device's rows through one distill kernel call
-            phi, psi = distill_phi_psi(logits.reshape(D * B, C),
-                                       yb.reshape(-1),
-                                       gout[dev, yb].reshape(D * B, C))
-            loss = phi.view(D, B).mean(1) + b * psi.view(D, B).mean(1)
-            # devices are independent: the gradient of the summed
-            # per-device losses is each device's own gradient
-            grads = torch.autograd.grad(loss.sum(), leaves)
-            with torch.no_grad():
-                for p, g in zip(leaves, grads):
-                    p.sub_(eta * g)   # in place on the stacked parameters
-                oh = F.one_hot(yb, C).to(torch.float32)
-                out_sum += oh.transpose(1, 2) @ torch.softmax(logits, -1)
-                cnt += oh.sum(1)
-                losses[:, k] = loss
-        for t in leaves:
-            t.requires_grad_(False)
-        favg = out_sum / cnt[:, :, None].clamp_min(1.0)
-        return params, favg, cnt, losses.mean(1)
 
-    return local_train
+class LocalTrain:
+    """:func:`make_local_train`'s callable.  Each input layout (and eta)
+    gets static buffers and a :class:`~repro_torch.core.graphs.StepGraph`
+    of one step (``core/graphs.py`` :class:`CapturedSteps`), built at
+    first use and kept: on the GPU the K steps are graph replays, on the
+    CPU the same step runs eagerly.
+
+    One step: gather the batch by the step's indices, ``apply_stacked``,
+    :func:`~repro_torch.kernels.distill_loss.distill_step` (the loss,
+    its gradient dz in the logits and the eq. (2) sums, every device's
+    rows in one kernel launch), ``autograd.grad`` of ``sum(logits dz)``
+    into the stacked leaves, and the SGD update ``p - (eta g)`` as two
+    foreach ops.
+    """
+
+    def __init__(self, apply_stacked, num_classes: int, local_iters: int,
+                 local_batch: int):
+        self.apply_stacked = apply_stacked
+        self.C, self.K, self.B = num_classes, local_iters, local_batch
+        self.steps = CapturedSteps()
+
+    @property
+    def graphs(self):
+        return self.steps.graphs
+
+    def _make_step(self, eta):
+        apply_stacked, B = self.apply_stacked, self.B
+
+        def make(buf):
+            inp, out, k = buf.inputs, buf.outputs, buf.k
+            D = inp["x"].shape[0]
+            rows = torch.arange(D, device=k.device)[:, None]
+
+            def step():
+                ik = inp["idx"].index_select(1, k).view(D, B)
+                xb, yb = inp["x"][rows, ik], inp["y"][rows, ik]
+                logits = apply_stacked(buf.params, xb)       # (D, B, C)
+                dz = distill_step(logits.detach(), yb, inp["gout"],
+                                  inp["beta"], k, out["losses"],
+                                  out["out_sum"], out["cnt"])
+                # devices are independent: dz is each device's own
+                # gradient.  sum(logits * dz) is a scalar root whose
+                # gradient in the logits is dz exactly;
+                # autograd.grad(logits, grad_outputs=dz) would import
+                # PyTorch's symbolic-shape module (sympy) at its first
+                # call, seconds of host time
+                grads = torch.autograd.grad((logits * dz).sum(), buf.leaves)
+                with torch.no_grad():
+                    torch._foreach_sub_(buf.leaves,
+                                        torch._foreach_mul(grads, eta))
+                    k.add_(1)
+
+            return step
+
+        return make
+
+    def __call__(self, params, x, y, keys, gout, use_kd, eta, beta, n_loc):
+        C, K, B = self.C, self.K, self.B
+        D = x.shape[0]
+        idx = rng.randint(rng.split(keys, K), (B,), 0, n_loc)  # (D, K, B)
+        b = torch.full((1,), beta if use_kd else 0.0, device=x.device)
+        new, out = self.steps(
+            self._make_step(eta), params,
+            dict(x=x, y=y, idx=idx, gout=gout, beta=b),
+            dict(out_sum=(D, C, C), cnt=(D, C), losses=(D, K)), K,
+            key=(eta,))
+        cnt = out["cnt"]
+        favg = out["out_sum"] / cnt[:, :, None].clamp_min(1.0)
+        return new, favg, cnt, out["losses"].mean(1)
 
 
 def weighted_avg(stacked, weights):
@@ -223,9 +262,10 @@ class FederatedTrainer:
             model = CNN(fc.num_classes, fc.task_spec().input_shape)
         self.model = model
         self.ch = ch or ChannelConfig(num_devices=fc.num_devices)
-        self._local_train = make_local_train(
+        self.local_train = make_local_train(
             model.apply_stacked, fc.num_classes, fc.local_iters,
             fc.local_batch)
+        self.output_to_model = OutputToModel(model.apply)
         self._uplink_stage = make_uplink_stage(fc.codec, fc.protocol)
         self._plan_cache = {}
 
@@ -295,7 +335,7 @@ class FederatedTrainer:
 
         # ---- local updates (eq. 1 / 3) ----
         dkeys = rng.split(rng.fold_in(kr, 1), D)
-        dev_params, favg, cnt, mloss = self._local_train(
+        dev_params, favg, cnt, mloss = self.local_train(
             state.dev_params, dev_x, dev_y, dkeys, state.dev_gout, use_kd,
             fc.eta, fc.beta, n_local)
         self._sync()
@@ -321,8 +361,8 @@ class FederatedTrainer:
             if up_ok.any():
                 gout = gout_update(favg_rx, cnt, ok.to(torch.float32))
             if proto != "fd":
-                g_params, _ = output_to_model(
-                    self.model.apply, g_params, seeds["train_x"],
+                g_params, _ = self.output_to_model(
+                    g_params, seeds["train_x"],
                     seeds["train_y"], gout, fc.server_iters,
                     fc.server_batch, fc.eta, fc.beta, rng.fold_in(kr, 4))
 

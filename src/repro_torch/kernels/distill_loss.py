@@ -17,6 +17,14 @@ KD regularizer for unnormalised and zero G_out rows too.
 rows do): the third kernel of ``csrc/distill.cu`` on the GPU,
 :func:`distill_loss_plain` on the CPU.  It has no gradient, as the
 reference kernel has none.
+
+:func:`distill_step` is B2 redesigned for one local SGD step of D
+devices with B rows each: the forward, the backward for the cotangents
+the step always passes (dphi = 1/B, dpsi = beta/B), the per-device loss
+and the step's eq. (2) sums, in one launch of the fourth kernel of
+``csrc/distill.cu`` on the GPU; :func:`distill_step_plain` on the CPU.
+beta and the step index are device scalars, so a captured CUDA graph of
+the step reads them at each replay.
 """
 from __future__ import annotations
 
@@ -35,6 +43,10 @@ BWD = CudaKernel("distill_bwd", "distill.cu", "phi_psi_bwd_launch",
 LOSS = CudaKernel("distill_loss", "distill.cu", "distill_loss_launch",
                   [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
                   + [ctypes.c_float])
+STEP = CudaKernel("distill_step", "distill.cu", "distill_step_launch",
+                  [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 4)
+#: shared memory one distill_step CTA may take (B (C + 3) words)
+STEP_SMEM_BYTES = 48 * 1024
 
 
 def _work_dtype(t):
@@ -162,3 +174,64 @@ def distill_loss(logits, labels, g_rows, beta: float):
         LOSS.launch(logits.device, logits.data_ptr(), labels.data_ptr(),
                     g_rows.data_ptr(), out.data_ptr(), n, c, float(beta))
     return out
+
+
+def distill_step_plain(z, y, gout, beta, k, losses, out_sum, cnt):
+    """Plain version of :func:`distill_step`, with the formulas of the
+    eager step: the autograd function's forward and backward
+    (:func:`phi_psi_plain`, :func:`phi_psi_bwd_plain`), ``one_hot``,
+    ``softmax`` and a ``bmm`` for the eq. (2) sums."""
+    D, B, C = z.shape
+    dev = torch.arange(D, device=z.device)[:, None]
+    zf, yf = z.reshape(D * B, C), y.reshape(D * B)
+    gf = gout[dev, y].reshape(D * B, C)
+    phi, psi = phi_psi_plain(zf, yf, gf)
+    beta = beta.reshape(())
+    loss = phi.view(D, B).mean(1) + beta * psi.view(D, B).mean(1)
+    ones = torch.ones(D * B, dtype=z.dtype, device=z.device)
+    dz, _ = phi_psi_bwd_plain(zf, yf, gf, ones / B, beta * ones / B)
+    losses.index_copy_(1, k.reshape(1), loss[:, None])
+    oh = torch.nn.functional.one_hot(y, C).to(torch.float32)
+    out_sum += oh.transpose(1, 2) @ torch.softmax(z, -1)
+    cnt += oh.sum(1)
+    return dz.view(D, B, C)
+
+
+def distill_step(z, y, gout, beta, k, losses, out_sum, cnt):
+    """One local step's distill work for D devices of B rows: z (D, B, C)
+    float32 logits, y (D, B) int64 labels in [0, C), gout (D, C, C) each
+    device's G_out, beta a one-element float32 tensor, k a one-element
+    int64 tensor (the step index).  Returns dz (D, B, C), the gradient of
+    sum_d [mean_B phi + beta mean_B psi] in z; writes the per-device loss
+    into ``losses[:, k]`` (losses (D, K)) and adds the step's
+    ``onehot(y)^T softmax(z)`` to ``out_sum`` (D, C, C) and
+    ``onehot(y)`` to ``cnt`` (D, C), in place."""
+    args = (z, y, gout, beta, k, losses, out_sum, cnt)
+    if not on_cuda(*args):
+        return distill_step_plain(*args)
+    require(z.dim() == 3, f"distill_step takes (D, B, C) logits, got "
+            f"{tuple(z.shape)}")
+    D, B, C = z.shape
+    require(y.shape == (D, B) and y.dtype == torch.int64 and k.numel() == 1
+            and k.dtype == torch.int64,
+            "distill_step takes (D, B) int64 labels and an int64 step")
+    require(gout.shape == (D, C, C) and out_sum.shape == (D, C, C)
+            and cnt.shape == (D, C) and losses.dim() == 2
+            and losses.shape[0] == D and beta.numel() == 1,
+            "distill_step: gout and out_sum (D, C, C), cnt (D, C), losses "
+            "(D, K), beta one element")
+    require(all(t.dtype == torch.float32
+                for t in (z, gout, beta, losses, out_sum, cnt)),
+            "distill_step takes float32 logits, tables and sums")
+    require(all(t.is_contiguous() for t in args),
+            "distill_step operands must be contiguous")
+    require(B * (C + 3) * 4 <= STEP_SMEM_BYTES,
+            f"distill_step: B (C + 3) words must fit {STEP_SMEM_BYTES} "
+            f"bytes of shared memory, got B={B}, C={C}")
+    dz = torch.empty_like(z)
+    if D and B:
+        STEP.launch(z.device, z.data_ptr(), y.data_ptr(), gout.data_ptr(),
+                    beta.data_ptr(), k.data_ptr(), dz.data_ptr(),
+                    losses.data_ptr(), out_sum.data_ptr(), cnt.data_ptr(),
+                    D, B, C, losses.shape[1])
+    return dz

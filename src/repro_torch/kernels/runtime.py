@@ -131,6 +131,15 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts[name]`` launches to each named kernel.
+    A CUDA graph's replay runs the launches captured in it without the
+    wrappers: its owner (``core/graphs.py``) counts them here, and takes
+    the capture's own (recorded, not run) back out with ``times=-1``."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n * times
+
+
 def on_cuda(*tensors) -> bool:
     """The dispatch rule: True if every tensor lies on one CUDA device
     (launch the kernel), False if all lie on the CPU (plain version).

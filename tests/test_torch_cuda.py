@@ -11,13 +11,17 @@ import torch
 
 from repro_torch import rng
 from repro_torch.channel import ChannelConfig
-from repro_torch.core.protocols import FederatedConfig, FederatedTrainer
+from repro_torch.core.graphs import StepGraph
+from repro_torch.core.protocols import (FederatedConfig, FederatedTrainer,
+                                        make_local_train)
 from repro_torch.data import partition_iid, synthetic_images
 from repro_torch.kernels import runtime
 from repro_torch.kernels import ops
 from repro_torch.kernels.distill_loss import (distill_loss,
                                               distill_loss_plain,
                                               distill_phi_psi,
+                                              distill_step,
+                                              distill_step_plain,
                                               phi_psi_bwd_plain,
                                               phi_psi_plain)
 from repro_torch.kernels.flash_attention import (attention_plain,
@@ -116,15 +120,116 @@ def test_trainer_on_gpu_matches_cpu(gpu):
                          max_rounds=2, n_seed=6, n_inverse=12)
     ch = ChannelConfig(num_devices=4, p_up_dbm=40.0)
     runtime.reset_launch_counts()
-    h_gpu = FederatedTrainer(CNN(), fc, ch, device=gpu).run(
-        dev_x, dev_y, x[1200:], y[1200:])
+    tr = FederatedTrainer(CNN(), fc, ch, device=gpu)
+    h_gpu = tr.run(dev_x, dev_y, x[1200:], y[1200:])
     counts = runtime.launch_counts()
     h_cpu = FederatedTrainer(CNN(), fc, ch, device="cpu").run(
         dev_x, dev_y, x[1200:], y[1200:])
-    assert counts["mixup"] >= 3 and counts["distill_fwd"] == 16
+    # 2 rounds x 8 local steps: the first graph's warm-up steps, then
+    # replays of the captured step
+    assert counts["mixup"] >= 3 and counts["distill_step"] == 16
+    (g,) = tr.local_train.graphs
+    assert g.warm_steps + g.replays == 16 and g.replays > 0
+    assert (g.warmed["distill_step"] + g.captured["distill_step"] * g.replays
+            == 16)
     np.testing.assert_allclose(h_gpu["loss"], h_cpu["loss"], atol=1e-4)
     np.testing.assert_allclose(h_gpu["acc"], h_cpu["acc"], atol=1e-4)
     assert h_gpu["round_latency_s"] == h_cpu["round_latency_s"]
+
+
+def _step_inputs(gpu, D, B, C, seed, odd_rows=False):
+    g_ = torch.Generator(device=gpu).manual_seed(seed)
+    z = 2 * torch.randn(D, B, C, generator=g_, device=gpu)
+    y = torch.randint(0, C, (D, B), generator=g_, device=gpu)
+    gout = torch.softmax(torch.randn(D, C, C, generator=g_, device=gpu), -1)
+    if odd_rows:
+        gout[:, 0] = 0.0                                    # zero rows
+        gout[:, 1:C // 2] *= 3.0                            # unnormalised
+    sums = (torch.randn(D, 7, generator=g_, device=gpu),
+            torch.rand(D, C, C, generator=g_, device=gpu),
+            torch.randint(0, 4, (D, C), generator=g_, device=gpu).float())
+    return z, y, gout, sums
+
+
+# the phase-4 shapes of chip_smoke.py: the main path's (10, 16, 10) with
+# and without KD, the CPU tests' (4, 16, 10), an odd (3, 5, 12), and zero
+# and unnormalised G_out rows
+@pytest.mark.parametrize("D,B,C,beta,odd_rows", [
+    (10, 16, 10, 0.0, False), (10, 16, 10, 0.01, False),
+    (4, 16, 10, 0.01, False), (3, 5, 12, 0.01, False),
+    (10, 16, 10, 0.01, True)])
+def test_distill_step_kernel_matches_plain(gpu, D, B, C, beta, odd_rows):
+    z, y, gout, sums = _step_inputs(gpu, D, B, C, D + B + C, odd_rows)
+    mine = [t.clone() for t in sums]
+    want = [t.clone() for t in sums]
+    b = torch.tensor([beta], device=gpu)
+    k = torch.tensor([4], device=gpu)
+    before = runtime.KERNELS["distill_step"].launches
+    dz = distill_step(z, y, gout, b, k, *mine)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["distill_step"].launches == before + 1
+    wdz = distill_step_plain(z, y, gout, b, k, *want)
+    torch.testing.assert_close(dz, wdz, rtol=0, atol=1e-5)
+    for got, w in zip(mine, want):
+        torch.testing.assert_close(got, w, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("K", [1, 2, 8])
+def test_local_train_on_gpu_matches_cpu(gpu, K):
+    """The captured step against the CPU's eager one, also with fewer
+    steps than the graph's warm-up (which reads only the run's steps)."""
+    D, C, B = 3, 10, 16
+    g = torch.Generator().manual_seed(K)
+    x = torch.rand(D, 40, 28, 28, 1, generator=g)
+    y = torch.randint(0, C, (D, 40), generator=g)
+    cnn = CNN()
+    p = cnn.init(rng.PRNGKey(1))
+    params = {k: {m: t.expand((D,) + t.shape).clone() for m, t in v.items()}
+              for k, v in p.items()}
+    gout = torch.softmax(torch.randn(D, C, C, generator=g), -1)
+    keys = rng.split(rng.PRNGKey(3), D)
+    outs = []
+    for d in (gpu, torch.device("cpu")):
+        lt = make_local_train(cnn.apply_stacked, C, K, B)
+        mv = {k: {m: t.to(d) for m, t in v.items()} for k, v in params.items()}
+        got = lt(mv, x.to(d), y.to(d), keys.to(d), gout.to(d), True, 0.01,
+                 0.01, 40)
+        outs.append([t.cpu() for v in got[0].values() for t in v.values()]
+                    + [t.cpu() for t in got[1:]])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_a_round_state_outlives_the_next_round(gpu):
+    """The step graphs' static buffers are reused every round: a round's
+    returned state (FD returns the trained device parameters as they
+    are) must not change when the next round runs."""
+    x, y = synthetic_images(rng.PRNGKey(42), 1400, device=gpu)
+    dev_x, dev_y = (torch.as_tensor(a, device=gpu) for a in partition_iid(
+        x[:1200], y[:1200], 4, 300, 10, seed=0))
+    for proto in ("fd", "mix2fld"):
+        fc = FederatedConfig(protocol=proto, num_devices=4, local_iters=8,
+                             local_batch=16, server_iters=8,
+                             server_batch=16, max_rounds=3, n_seed=6,
+                             n_inverse=12)
+        tr = FederatedTrainer(CNN(), fc, ChannelConfig(num_devices=4,
+                                                       p_up_dbm=40.0),
+                              device=gpu)
+        state = tr.init_state(4)
+        state, _ = tr.round_once(state, dev_x, dev_y, x[1200:], y[1200:])
+        kept = {f: {k: {m: t.clone() for m, t in v.items()}
+                    for k, v in getattr(state, f).items()}
+                for f in ("dev_params", "g_params")}
+        nxt, _ = tr.round_once(state, dev_x, dev_y, x[1200:], y[1200:])
+        torch.cuda.synchronize()
+        for f, tree in kept.items():
+            for k, v in tree.items():
+                for m, t in v.items():
+                    assert torch.equal(getattr(state, f)[k][m], t), (
+                        proto, f, k, m)
+        assert not torch.equal(nxt.dev_params["fc"]["w"],
+                               state.dev_params["fc"]["w"])
+        assert all(g.replays > 0 for g in tr.local_train.graphs)
 
 
 # bf16: the kernel rounds the running-max probabilities, the plain
@@ -331,3 +436,23 @@ def test_mamba2_serve_smoke_on_gpu_matches_cpu(gpu):
     assert runtime.launch_counts()["ssd_scan"] == 2   # two layers
     want = serve("mamba2-370m", 2, 40, 6, smoke=True, device="cpu")
     assert torch.equal(got.cpu(), want)
+
+
+def test_a_failed_capture_raises_and_does_not_run_eagerly(gpu):
+    """A step that syncs with the host cannot be captured: the graph
+    raises, and the step has run only its warm-up and the capture
+    attempt, not the steps asked for.  (Last in the file: the failed
+    capture is the last CUDA work of the process.)"""
+    t = torch.zeros(1, device=gpu)
+    calls = []
+
+    def step():
+        calls.append(1)
+        t.add_(1)
+        float(t.sum())        # a host sync, refused while capturing
+
+    graph = StepGraph(step, torch.zeros(1, dtype=torch.int64, device=gpu))
+    with pytest.raises(RuntimeError, match="capturing the step"):
+        graph.run(t.zero_, 10)
+    assert len(calls) == graph.warmup + 1
+    assert graph.graph is None and graph.replays == 0

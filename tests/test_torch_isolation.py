@@ -41,6 +41,10 @@ def test_no_jax_or_reference_import(path):
 
 def test_the_walk_sees_the_package():
     assert len(FILES) > 20
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"src/repro_torch/core/graphs.py",
+            "src/repro_torch/core/conversion.py",
+            "tools/round_ab.py"} <= names
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):

@@ -283,7 +283,7 @@ def test_wrappers_reject_bad_arguments():
 def test_every_kernel_is_registered_with_a_source():
     names = set(runtime.KERNELS)
     assert names == {"mixup", "distill_fwd", "distill_bwd", "distill_loss",
-                     "flash_attention", "ssd_scan"}
+                     "distill_step", "flash_attention", "ssd_scan"}
     for k in runtime.KERNELS.values():
         assert (runtime.SRC_DIR / k.source).is_file()
 
