@@ -1,8 +1,9 @@
 """The link pipeline: every device<->server transfer as one seam,
 ``encode -> channel -> decode``.
 
-* :func:`make_uplink_stage` — the uplink codec stage (identity only in
-  this slice: it passes the arrays through and draws nothing);
+* :func:`uplink_stage` / :func:`make_uplink_stage` — the uplink codec
+  stage (``channel/payload.py``): what the server decodes of each
+  device's payload;
 * :class:`LinkPlan` — the host-side link plan (per-slot success
   probabilities and decode-slot counts) and its per-round draw;
 * :func:`downlink_gout` / :func:`downlink_params` — the downlink
@@ -14,8 +15,11 @@ import dataclasses
 
 import torch
 
+from .. import rng
+from ..registry import canonical_protocol
 from .model import round_trip_traced
-from .payload import check_codec, round_slot_plan
+from .payload import (CodecSpec, decode_params, decode_table, encode_params,
+                      encode_table, parse_codec, round_slot_plan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,14 +67,35 @@ class LinkPlan:
         return out
 
 
+def uplink_stage(spec: CodecSpec, protocol: str, dev_params, favg, key,
+                 dev_gout, g_params):
+    """One round's uplink payload through the codec.  ``dev_params``
+    leaves, ``favg`` and ``dev_gout`` are device-stacked (D, ...).
+    Returns ``(dev_params_rx, favg_rx)``, what the server decodes; the
+    protocol's other half passes through.  Device d encodes with
+    ``split(key, D)[d]``; the references are the receiver-tracked
+    ``dev_gout`` (tables) and the round's starting global model (FL).
+    ``identity`` draws nothing and returns its inputs."""
+    if spec.name == "identity":
+        return dev_params, favg
+    if canonical_protocol(protocol) == "fl":
+        leaf = next(iter(next(iter(dev_params.values())).values()))
+        dkeys = rng.split(key, leaf.shape[0])
+        coded = encode_params(spec, dev_params, dkeys, g_params)
+        return decode_params(spec, coded, g_params), favg
+    dkeys = rng.split(key, favg.shape[0])
+    coded = encode_table(spec, favg, dkeys, dev_gout)
+    return dev_params, decode_table(spec, coded, dev_gout)
+
+
 def make_uplink_stage(codec, protocol: str):
-    """The uplink codec stage ``stage(dev_params, favg, key, dev_gout,
-    g_params) -> (dev_params_rx, favg_rx)``: what the server decodes.
-    Identity passes both through untouched and consumes no randomness."""
-    check_codec(codec)
+    """:func:`uplink_stage` with the codec and the protocol closed over:
+    ``stage(dev_params, favg, key, dev_gout, g_params)``."""
+    spec = parse_codec(codec)
 
     def stage(dev_params, favg, key, dev_gout, g_params):
-        return dev_params, favg
+        return uplink_stage(spec, protocol, dev_params, favg, key,
+                            dev_gout, g_params)
 
     return stage
 

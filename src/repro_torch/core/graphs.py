@@ -167,6 +167,10 @@ class CapturedSteps:
     def graphs(self):
         return [g for _, g in self._built.values()]
 
+    @property
+    def buffers(self):
+        return [b for b, _ in self._built.values()]
+
     def __call__(self, make_step, params, inputs: dict, outputs: dict,
                  n: int, key=()):
         """``make_step(buf)`` returns the step on the :class:`StepBuffers`

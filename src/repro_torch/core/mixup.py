@@ -61,6 +61,17 @@ def mixup_pairs(key, labels, n_pairs: int, num_classes: int):
     return idx_i, idx_j
 
 
+def make_mixup_batch(x, y, idx_i, idx_j, lam: float, num_classes: int):
+    """eq. (6) for one device in plain PyTorch: mixed samples, soft labels
+    and the (minor, major) classes (lam on minor, 1 - lam on major)."""
+    xi, xj = x[idx_i], x[idx_j]
+    mixed = lam * xi + (1.0 - lam) * xj
+    yi = F.one_hot(y[idx_i], num_classes).to(torch.float32)
+    yj = F.one_hot(y[idx_j], num_classes).to(torch.float32)
+    soft = lam * yi + (1.0 - lam) * yj
+    return mixed, soft, (y[idx_i], y[idx_j])
+
+
 def _gather_rows(dev_x, idx):
     """dev_x (D, n, ...), idx (D, k) -> (D, k, ...)."""
     return dev_x[torch.arange(dev_x.shape[0],
@@ -211,6 +222,16 @@ def pair_symmetric(minor, major, device_ids):
                         break
     return np.stack([np.asarray(i, np.int64),
                      np.asarray(j, np.int64)], axis=1)
+
+
+def inverse_mixup(mixed_a, mixed_b, lam: float):
+    """eq. (7) for N = 2 on a symmetric pair: the two inversely mixed-up
+    samples (hard label = the lam-class of a, resp. of b)."""
+    lam_hat = lam / (2.0 * lam - 1.0)
+    s1 = lam_hat * mixed_a + (1.0 - lam_hat) * mixed_b
+    s2 = (1.0 - lam_hat) * mixed_a + lam_hat * mixed_b
+    return s1, s2
+
 
 def cycle_lams(n: int, lam: float):
     """Ratio vector (lam, 1-lam, 0, ..., 0) of length ``n``: the cyclic
@@ -509,3 +530,12 @@ def inverse_mixup_cycles(mixed, cycles, lam: float):
     stack = mixed[torch.as_tensor(cycles[:, perm], device=mixed.device)]
     out = torch.einsum("nk,gkf->gnf", ratios, stack)
     return out.reshape(g * n, -1)
+
+
+def inverse_mixup_n(mixed_stack, lams):
+    """General-N inverse-Mixup: ``mixed_stack`` (N, ...) mixed with the
+    cyclic ratio shifts of ``lams`` (row d of circulant(lams)); returns
+    the (N, ...) hard-label samples of Prop. 1."""
+    ratios = inverse_mixup_ratios(lams).to(mixed_stack.device)   # (N, N)
+    flat = mixed_stack.reshape(mixed_stack.shape[0], -1)
+    return (ratios @ flat).reshape(mixed_stack.shape)

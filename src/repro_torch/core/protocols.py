@@ -5,26 +5,30 @@ at every device, Rayleigh-faded uplink/downlink with SNR-gated success,
 weighted aggregation over the successful set, and — for the FLD family
 — the server-side output-to-model conversion of eq. (5).
 
-The device axis is explicit: parameters are stacked ``(D, ...)`` and
-the CNN runs the whole population as one grouped convolution
-(``CNN.apply_stacked``), where the reference vmaps over devices.  A
-local SGD step sends every device's logits through one launch of the
-fused distill step kernel, and on the GPU the steps of local SGD and of
-the eq. (5) conversion are replays of a captured CUDA graph
-(``core/graphs.py``).  ``FederatedTrainer.run`` loops over
-:meth:`FederatedTrainer.round_once` directly (the reference's
-``LoopRoundProgram`` at depth 1).
+The device axis is explicit: parameters are stacked ``(D, ...)`` and a
+model runs the whole population at once (``apply_stacked``: the CNN as
+one grouped convolution, the MLP as one ``bmm`` a layer), where the
+reference vmaps over devices.  A local SGD step sends every device's
+logits through one launch of the fused distill step kernel, and on the
+GPU the steps of local SGD and of the eq. (5) conversion are replays of
+a captured CUDA graph (``core/graphs.py``).  A mixed-architecture cohort
+(``model="cnn+mlp"``, FD family only) trains each architecture group
+with its own local train, so its own graph.  Client sampling
+(``sample_ratio < 1``) gathers the round's cohort off the pool before
+local SGD and scatters it back after the downlink.
+``FederatedTrainer.run`` loops over :meth:`FederatedTrainer.round_once`
+directly (the reference's ``LoopRoundProgram`` at depth 1).
 
-Not ported in this slice, and refused by :class:`FederatedConfig`:
-client sampling, mixed-architecture cohorts, the non-identity codecs,
-the cifar/speech tasks (ROADMAP A10), the straggler stage and the
-service (A11), the sweep grid step (A12) and the mesh-sharded path
-(A13).
+Not ported yet, and refused by :class:`FederatedConfig`: device churn,
+the straggler stage and the service (ROADMAP A11), the sweep grid step
+(A12), the mesh-sharded path (A13) and the transformer classifier
+(A15).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -32,26 +36,30 @@ import torch
 
 from .. import rng
 from ..channel import ChannelConfig
-from ..channel.payload import check_codec
+from ..channel.payload import CodecSpec, LinkConfig
 from ..channel.pipeline import (LinkPlan, downlink_gout, downlink_params,
                                 make_uplink_stage)
 from ..data.pipeline import TaskSpec, parse_task
 from ..device import resolve_device
-from ..models.cnn import CNN
 from ..kernels.distill_loss import distill_step
-from ..registry import FLD_FAMILY, PROTOCOLS, canonical_protocol  # noqa: F401
+from ..models.registry import ModelSpec, build_model, parse_model
+from ..registry import (FLD_FAMILY, MODELS, PROTOCOLS,  # noqa: F401
+                        canonical_model, canonical_protocol)
 from .conversion import OutputToModel
 from .graphs import CapturedSteps
+from .privacy import GaussianAccountant
+from .sampling import ChurnConfig, SamplerConfig
 from .seed_prep import collect_seeds, summarize_seeds
 from .state import RoundState
-
-_MODEL_ALIASES = {"cnn": "cnn", "conv": "cnn", "paper_cnn": "cnn"}
 
 
 @dataclasses.dataclass
 class FederatedConfig:
     """The reference's fields and defaults (the paper's Sec. IV values).
-    Values this slice does not run raise NotImplementedError."""
+    ``sampler`` and ``channel`` are the typed sub-configs; the flat
+    ``sample_*`` and ``codec``/``quant_bits``/``dp_*`` fields are their
+    aliases, reconciled as the reference does.  Values not ported yet
+    raise NotImplementedError naming their ROADMAP item."""
     protocol: str = "mix2fld"
     num_devices: int = 10          # |D|
     num_classes: Optional[int] = None  # N_L (None: the task's)
@@ -73,53 +81,116 @@ class FederatedConfig:
     mesh_shards: int = 0
     keep_seed_arrays: bool = False  # keep the round-1 seed arrays on
     #                                history["seed_arrays"]
-    codec: str = "identity"
+    codec: str = "identity"        # link codec: "quantize8", "delta",
+    #                                "dp_gaussian0.5", ... (channel.payload)
     quant_bits: int = 8
     dp_sigma: float = 1.0
     dp_clip: float = 1.0
     dp_delta: float = 1e-5
-    sample_ratio: float = 1.0
+    sample_ratio: float = 1.0      # per-round participation fraction q
     sample_seed: int = 0
     sample_min_active: int = 1
-    model: str = "cnn"
-    task: str = "digits"
-    model_partition: Optional[tuple] = None
-    sampler: Optional[object] = None
-    churn: Optional[object] = None
-    channel: Optional[object] = None
+    model: str = "cnn"             # "cnn", "mlp", or a "+"-joined cohort
+    #                                ("cnn+mlp", FD family only)
+    task: str = "digits"           # "digits", "cifar", "speech"
+    model_partition: Optional[tuple] = None  # per-device architectures
+    sampler: Optional[SamplerConfig] = None
+    churn: Optional[ChurnConfig] = None
+    channel: Optional[LinkConfig] = None
+
+    #: flat alias -> sub-config attribute, per sub-config field
+    _SUB_ALIASES = {
+        "sampler": (SamplerConfig, {"sample_ratio": "sample_ratio",
+                                    "sample_seed": "seed",
+                                    "sample_min_active": "min_active"}),
+        "channel": (LinkConfig, {"codec": "codec",
+                                 "quant_bits": "quant_bits",
+                                 "dp_sigma": "dp_sigma",
+                                 "dp_clip": "dp_clip",
+                                 "dp_delta": "dp_delta"}),
+    }
+
+    def _sync_sub(self, attr: str) -> None:
+        """Reconcile one typed sub-config with its flat aliases, as the
+        reference does: no sub-config builds it from the aliases (with a
+        DeprecationWarning when an alias was set); a sub-config with the
+        aliases at their defaults is canonical; both set and disagreeing,
+        the aliases win.  The aliases then mirror the sub-config."""
+        cls, aliases = self._SUB_ALIASES[attr]
+        defaults = cls()
+        sub = getattr(self, attr)
+        flats = {f: getattr(self, f) for f in aliases}
+        changed = sorted(f for f in aliases
+                         if flats[f] != getattr(defaults, aliases[f]))
+        if sub is None:
+            if changed:
+                warnings.warn(
+                    f"flat FederatedConfig fields {changed} are "
+                    f"deprecated; pass {attr}={cls.__name__}(...) "
+                    "instead", DeprecationWarning, stacklevel=4)
+            sub = cls(**{aliases[f]: flats[f] for f in aliases})
+        elif changed and \
+                any(flats[f] != getattr(sub, aliases[f]) for f in aliases):
+            sub = cls(**{aliases[f]: flats[f] for f in aliases})
+        object.__setattr__(self, attr, sub)
+        for f in aliases:
+            object.__setattr__(self, f, getattr(sub, aliases[f]))
 
     def __post_init__(self):
         self.protocol = canonical_protocol(self.protocol)
-        spec = parse_task(self.task)
-        self.task = spec.name
+        self.task = parse_task(self.task).name
         if self.num_classes is None:
-            self.num_classes = spec.num_classes
+            self.num_classes = self.task_spec().num_classes
         if self.sample_bits is None:
-            self.sample_bits = spec.sample_bits
-        if not 0.0 < self.sample_ratio <= 1.0:
-            raise ValueError(f"sample_ratio must be in (0, 1], got "
-                             f"{self.sample_ratio}")
-        if self.sample_ratio < 1.0 or self.sampler is not None:
-            raise NotImplementedError(
-                "client sampling is not ported yet (ROADMAP A10)")
+            self.sample_bits = self.task_spec().sample_bits
+        self._sync_sub("sampler")
+        self._sync_sub("channel")
         if self.churn is not None:
+            if not isinstance(self.churn, ChurnConfig):
+                raise TypeError(f"churn must be a ChurnConfig, "
+                                f"got {type(self.churn).__name__}")
             raise NotImplementedError(
                 "device churn is not ported yet (ROADMAP A11)")
-        if self.channel is not None:
-            raise NotImplementedError(
-                "the typed LinkConfig is not ported yet (ROADMAP A10); "
-                "set codec='identity'")
-        check_codec(self.codec)
         if self.shard_devices:
             raise NotImplementedError(
                 "the mesh-sharded device axis is not ported yet "
                 "(ROADMAP A13)")
-        model = _MODEL_ALIASES.get(self.model)
-        if model is None or self.model_partition is not None:
+        mspec = parse_model(self.model)
+        self.model = mspec.name
+        if self.model_partition is None:
+            if mspec.mixed:
+                self.model_partition = mspec.partition(self.num_devices)
+        else:
+            part = tuple(canonical_model(m) for m in self.model_partition)
+            if len(part) != self.num_devices:
+                raise ValueError(
+                    f"model_partition has {len(part)} entries for "
+                    f"num_devices={self.num_devices}")
+            # a uniform partition of the single model is the homogeneous
+            # cohort
+            self.model_partition = (
+                None if set(part) == {self.model} else part)
+        if "transformer" in set(mspec.parts) | set(
+                self.model_partition or ()):
             raise NotImplementedError(
-                f"model {self.model!r} / model_partition are not ported "
-                "yet (ROADMAP A10); the port runs the paper CNN")
-        self.model = model
+                "the transformer classifier is not ported yet "
+                "(ROADMAP A15)")
+        if self.model_partition is not None:
+            # mixed cohorts exchange outputs: only the FD-family uplink
+            # aggregates in the shared (C, C) output space
+            if self.protocol == "fl":
+                raise ValueError(
+                    "protocol 'fl' aggregates parameter vectors and "
+                    "cannot mix architectures; a mixed-model cohort "
+                    f"({self.model!r}) needs an FD-family uplink — one "
+                    "of ('fd',) + FLD_FAMILY "
+                    f"{FLD_FAMILY}")
+            if self.sample_ratio < 1.0:
+                raise ValueError(
+                    "mixed-architecture cohorts require full "
+                    f"participation (sample_ratio=1.0, got "
+                    f"{self.sample_ratio}): a sampled cohort would need "
+                    "ragged per-architecture gathers")
         if self.n_seed < 1:
             raise ValueError(f"n_seed must be >= 1, got {self.n_seed}")
         if self.n_inverse < 1:
@@ -128,8 +199,57 @@ class FederatedConfig:
             raise ValueError(f"lam is a mixing ratio in [0, 1], "
                              f"got {self.lam}")
 
+    def codec_spec(self) -> CodecSpec:
+        """The resolved link codec of ``channel``."""
+        return self.channel.spec()
+
+    def cohort_size(self, pool_size: Optional[int] = None) -> int:
+        """Devices training per round: ``num_devices`` (or
+        ``pool_size``) unless sampling shrinks it."""
+        pool = self.num_devices if pool_size is None else pool_size
+        return self.sampler.cohort_size(pool)
+
     def task_spec(self) -> TaskSpec:
         return parse_task(self.task)
+
+    def model_spec(self) -> ModelSpec:
+        """The parsed model spec (``parts[0]`` is the server's)."""
+        return parse_model(self.model)
+
+    def server_model(self) -> str:
+        """The global (server-side) architecture name."""
+        return self.model_spec().parts[0]
+
+    def model_key(self) -> str:
+        """The composite name when the per-device assignment is the
+        spec's round-robin cycle, the explicit assignment otherwise, the
+        single name for homogeneous cohorts."""
+        if self.model_partition is None:
+            return self.model
+        parts = self.model_spec().parts
+        cyc = tuple(parts[i % len(parts)] for i in range(self.num_devices))
+        if tuple(self.model_partition) == cyc:
+            return self.model
+        return "+".join(self.model_partition)
+
+    def arch_groups(self):
+        """None for homogeneous cohorts; else ``[(name, np.int32
+        indices), ...]`` in first-appearance order over the partition (the
+        first group holds device 0)."""
+        if self.model_partition is None:
+            return None
+        part = self.model_partition
+        return [(m, np.flatnonzero(np.asarray(part) == m).astype(np.int32))
+                for m in dict.fromkeys(part)]
+
+    def build_models(self) -> dict:
+        """Registry-built classifiers for every architecture this config
+        trains (the server's included)."""
+        shape = self.task_spec().input_shape
+        names = list(self.model_partition or (self.server_model(),))
+        names.append(self.server_model())
+        return {m: build_model(m, shape, self.num_classes)
+                for m in dict.fromkeys(names)}
 
 
 # ---------------------------------------------------------------------------
@@ -244,9 +364,12 @@ def _flat(params):
 class FederatedTrainer:
     """Runs one protocol over a simulated device population.
 
-    model: a :class:`~repro_torch.models.cnn.CNN` (or None to build the
-    paper CNN for ``fc.task``).  ``device``: where everything runs —
-    the GPU by default; pass ``"cpu"`` to run on the CPU.
+    model: an object with ``init``, ``apply``, ``apply_stacked`` and
+    ``num_params`` (the CNN or the MLP), or None to build ``fc.model``
+    from the registry for ``fc.task``.  A mixed cohort
+    (``fc.model_partition``) builds one classifier per architecture and
+    takes model=None.  ``device``: where everything runs — the GPU by
+    default; pass ``"cpu"`` to run on the CPU.
     """
 
     def __init__(self, model, fc: FederatedConfig,
@@ -258,29 +381,78 @@ class FederatedTrainer:
             # the port computes in full float32, like the reference
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        if model is None:
-            model = CNN(fc.num_classes, fc.task_spec().input_shape)
+        self._arch_groups = fc.arch_groups()
+        if self._arch_groups is not None:
+            if model is not None:
+                raise ValueError(
+                    "mixed-architecture cohorts build their per-device "
+                    "models from the registry; pass model=None")
+            self.models = fc.build_models()
+            model = self.models[fc.server_model()]
+        elif model is None:
+            model = fc.model_spec().build(fc.task_spec().input_shape,
+                                          fc.num_classes)
         self.model = model
         self.ch = ch or ChannelConfig(num_devices=fc.num_devices)
-        self.local_train = make_local_train(
-            model.apply_stacked, fc.num_classes, fc.local_iters,
-            fc.local_batch)
+        # one local train (so one captured step) per architecture group
+        self.local_train = self._arch_trains = None
+        if self._arch_groups is None:
+            self.local_train = make_local_train(
+                model.apply_stacked, fc.num_classes, fc.local_iters,
+                fc.local_batch)
+        else:
+            self._arch_trains = [
+                (arch, torch.as_tensor(idx, dtype=torch.int64,
+                                       device=self.device),
+                 make_local_train(self.models[arch].apply_stacked,
+                                  fc.num_classes, fc.local_iters,
+                                  fc.local_batch))
+                for arch, idx in self._arch_groups]
         self.output_to_model = OutputToModel(model.apply)
-        self._uplink_stage = make_uplink_stage(fc.codec, fc.protocol)
+        self._codec = fc.codec_spec()
+        self._uplink_stage = make_uplink_stage(self._codec, fc.protocol)
         self._plan_cache = {}
+
+    @property
+    def local_trains(self) -> list:
+        """The local trains of the cohort: one, or one per architecture
+        group."""
+        if self._arch_trains is None:
+            return [self.local_train]
+        return [lt for _, _, lt in self._arch_trains]
+
+    @property
+    def local_graphs(self) -> list:
+        """The captured local steps (``core/graphs.py`` StepGraphs), one
+        per input layout and architecture group."""
+        return [g for lt in self.local_trains for g in lt.graphs]
 
     def init_state(self, num_devices: Optional[int] = None) -> RoundState:
         """Fresh :class:`RoundState`: the reference's key schedule (``key``
         is the second ``split(PRNGKey(seed))`` output) and a common init
-        on every device."""
+        on every device.  In a mixed cohort the server's architecture
+        shares the global init and every other one draws from
+        ``fold_in(kinit, MODELS.index(arch) + 1)``."""
         fc = self.fc
         D = fc.num_devices if num_devices is None else num_devices
         C = fc.num_classes
         kinit, key = rng.split(rng.PRNGKey(fc.seed, self.device), 2)
         g_params = self.model.init(kinit)
-        dev_params = {k: {n: t.expand((D,) + t.shape).clone()
-                          for n, t in v.items()}
-                      for k, v in g_params.items()}
+
+        def stack(params, n):
+            return {k: {m: t.expand((n,) + t.shape).clone()
+                        for m, t in v.items()} for k, v in params.items()}
+
+        if self._arch_groups is None:
+            dev_params = stack(g_params, D)
+        else:
+            srv = fc.server_model()
+            dev_params = {
+                arch: stack(g_params if arch == srv else
+                            self.models[arch].init(
+                                rng.fold_in(kinit, MODELS.index(arch) + 1)),
+                            len(idx))
+                for arch, idx in self._arch_groups}
         gout = torch.full((C, C), 1.0 / C, device=self.device)
         dev_gout = gout.expand(D, C, C).clone()
         return RoundState(round=0, key=key, g_params=g_params,
@@ -288,7 +460,8 @@ class FederatedTrainer:
                           dev_gout=dev_gout)
 
     def link_plan(self, g_params, n_links: Optional[int] = None) -> LinkPlan:
-        """The link plan for an ``n_links``-device cohort (cached)."""
+        """The codec-aware link plan for an ``n_links``-device cohort
+        (cached per cohort size)."""
         fc = self.fc
         n_links = fc.num_devices if n_links is None else n_links
         plan = self._plan_cache.get(n_links)
@@ -297,7 +470,7 @@ class FederatedTrainer:
                                   n_mod=self.model.num_params(g_params),
                                   n_labels=fc.num_classes,
                                   sample_bits=fc.sample_bits,
-                                  n_seed=fc.n_seed, codec=fc.codec,
+                                  n_seed=fc.n_seed, codec=self._codec,
                                   n_links=n_links)
             self._plan_cache[n_links] = plan
         return plan
@@ -311,33 +484,68 @@ class FederatedTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def accuracy(self, params, x, y) -> float:
+    def accuracy(self, params, x, y, model=None) -> float:
         with torch.no_grad():
-            logits = self.model.apply(params, x)
+            logits = (model or self.model).apply(params, x)
         return float((logits.argmax(-1) == y).to(torch.float32).mean())
+
+    def _train(self, dev_params, dev_x, dev_y, dkeys, dev_gout, use_kd,
+               n_local):
+        """Local SGD of the round's devices; a mixed cohort trains each
+        architecture group in its own parameter space (device d keeps
+        its ``dkeys[d]``) and reassembles the (D, C, C) tables."""
+        fc = self.fc
+        if self._arch_trains is None:
+            return self.local_train(dev_params, dev_x, dev_y, dkeys,
+                                    dev_gout, use_kd, fc.eta, fc.beta,
+                                    n_local)
+        D, C = dev_x.shape[0], fc.num_classes
+        favg = torch.zeros(D, C, C, device=self.device)
+        cnt = torch.zeros(D, C, device=self.device)
+        mloss = torch.zeros(D, device=self.device)
+        new = {}
+        for arch, idx, lt in self._arch_trains:
+            new[arch], favg[idx], cnt[idx], mloss[idx] = lt(
+                dev_params[arch], dev_x[idx], dev_y[idx], dkeys[idx],
+                dev_gout[idx], use_kd, fc.eta, fc.beta, n_local)
+        return new, favg, cnt, mloss
 
     def round_once(self, state: RoundState, dev_x, dev_y, test_x, test_y,
                    *, plan: Optional[LinkPlan] = None, log=None):
         """One federated round.  Returns ``(new_state, record)``.  The round
         number and every draw derive from ``state``; the tensors must lie
-        on the trainer's device (``run`` moves them there)."""
+        on the trainer's device (``run`` moves them there).  ``dev_x`` and
+        ``dev_y`` hold the device pool; with ``fc.sample_ratio < 1`` the
+        round gathers its seeded cohort (``core/sampling.py``) off the
+        pool, trains it, and scatters it back: devices outside the cohort
+        keep their parameters and tables."""
         fc = self.fc
         proto = fc.protocol
-        D, n_local = dev_x.shape[:2]
+        D_pool, n_local = dev_x.shape[:2]
         p = state.round + 1
 
         t0 = time.perf_counter()
         kr = rng.fold_in(state.key, p)
         use_kd = proto != "fl" and p > 1  # KD once G_out exists
         g_params, gout, seeds = state.g_params, state.gout, state.seeds
+        dev_params, dev_gout = state.dev_params, state.dev_gout
+
+        # ---- client sampling: gather the round's cohort off the pool ----
+        D = fc.cohort_size(D_pool)
+        cohort = None
+        if D < D_pool:
+            cohort = fc.sampler.cohort(fc.seed, p, D_pool)
+            jdx = torch.as_tensor(cohort, device=self.device)
+            dev_params = {k: {n: t[jdx] for n, t in v.items()}
+                          for k, v in dev_params.items()}
+            dev_gout, dev_x, dev_y = dev_gout[jdx], dev_x[jdx], dev_y[jdx]
         if plan is None or plan.n_links != D:
             plan = self.link_plan(g_params, n_links=D)
 
         # ---- local updates (eq. 1 / 3) ----
         dkeys = rng.split(rng.fold_in(kr, 1), D)
-        dev_params, favg, cnt, mloss = self.local_train(
-            state.dev_params, dev_x, dev_y, dkeys, state.dev_gout, use_kd,
-            fc.eta, fc.beta, n_local)
+        dev_params, favg, cnt, mloss = self._train(
+            dev_params, dev_x, dev_y, dkeys, dev_gout, use_kd, n_local)
         self._sync()
         local_s = time.perf_counter() - t0
 
@@ -350,7 +558,7 @@ class FederatedTrainer:
         up_ok, dn_ok = link["up_ok"], link["dn_ok"]
         ok = torch.as_tensor(up_ok, device=self.device)
         dev_params_rx, favg_rx = self._uplink_stage(
-            dev_params, favg, rng.fold_in(kr, 5), state.dev_gout, g_params)
+            dev_params, favg, rng.fold_in(kr, 5), dev_gout, g_params)
 
         # ---- aggregation + (FLD) conversion ----
         if proto == "fl":
@@ -368,17 +576,44 @@ class FederatedTrainer:
 
         # ---- downlink (gated per device by dn_ok) ----
         mask = torch.as_tensor(dn_ok, device=self.device)
-        dev_gout = downlink_gout(state.dev_gout, gout, mask)
+        dev_gout = downlink_gout(dev_gout, gout, mask)
         if proto != "fd":
-            dev_params = downlink_params(dev_params, g_params, mask)
+            if self._arch_trains is None:
+                dev_params = downlink_params(dev_params, g_params, mask)
+            else:
+                # the converted model lives in the server architecture's
+                # space: only that group receives it, the others learn
+                # through the tables
+                srv = fc.server_model()
+                dev_params = dict(dev_params)
+                for arch, idx, _ in self._arch_trains:
+                    if arch == srv:
+                        dev_params[srv] = downlink_params(
+                            dev_params[srv], g_params, mask[idx])
+
+        # ---- scatter the trained cohort back into the pool ----
+        if cohort is not None:
+            dev_params = {k: {n: state.dev_params[k][n].index_copy(0, jdx, t)
+                              for n, t in v.items()}
+                          for k, v in dev_params.items()}
+            dev_gout = state.dev_gout.index_copy(0, jdx, dev_gout)
         self._sync()
         compute_s = time.perf_counter() - t0
         cum_time = state.cum_time_s + compute_s + link["latency_s"]
 
-        # ---- evaluation of the reference device (device 0) ----
-        ref = {k: {n: t[0] for n, t in v.items()}
-               for k, v in dev_params.items()}
-        acc = self.accuracy(ref, test_x, test_y)
+        # ---- evaluation of the reference device: pool device 0 at full
+        # participation, else the cohort's first device; in a mixed
+        # cohort device 0 of the first architecture group ----
+        if self._arch_trains is None:
+            ref_dev = 0 if cohort is None else int(cohort[0])
+            ref = {k: {n: t[ref_dev] for n, t in v.items()}
+                   for k, v in dev_params.items()}
+            acc = self.accuracy(ref, test_x, test_y)
+        else:
+            arch0 = self._arch_trains[0][0]
+            ref = {k: {n: t[0] for n, t in v.items()}
+                   for k, v in dev_params[arch0].items()}
+            acc = self.accuracy(ref, test_x, test_y, self.models[arch0])
         loss = float(mloss.mean())
         if log:
             log(f"[{proto}] round {p}: acc={acc:.3f} loss={loss:.3f} "
@@ -408,6 +643,7 @@ class FederatedTrainer:
                   "compute_s": compute_s, "local_s": local_s,
                   "cum_time_s": cum_time,
                   "uplink_ok": int(up_ok.sum()), "n_active": D,
+                  "cohort": cohort,  # None: every pool device trained
                   "link": link}
         return new_state, record
 
@@ -415,32 +651,47 @@ class FederatedTrainer:
         """Full protocol run over ``fc.max_rounds`` rounds.  Data may be
         numpy arrays or tensors; it is moved to the trainer's device.
         Returns the history dict (per-round accuracy, losses, latency,
-        cumulative time, seed metadata)."""
+        cumulative time, seed metadata; with the ``dp_gaussian`` codec
+        the epsilon after each round and the accountant's ledger)."""
         fc = self.fc
+        spec = self._codec
         dev_x, test_x = (self._tensor(a, torch.float32)
                          for a in (dev_x, test_x))
         dev_y, test_y = (self._tensor(a, torch.int64)
                          for a in (dev_y, test_y))
-        state = self.init_state(dev_x.shape[0])
-        plan = self.link_plan(state.g_params, n_links=dev_x.shape[0])
+        pool = dev_x.shape[0]
+        state = self.init_state(pool)
+        plan = self.link_plan(state.g_params, n_links=fc.cohort_size(pool))
+        acct = (GaussianAccountant(spec.dp_sigma, spec.dp_delta,
+                                   sample_ratio=fc.sample_ratio)
+                if spec.name == "dp_gaussian" else None)
         history = {"acc": [], "round_latency_s": [], "compute_s": [],
                    "local_s": [], "cum_time_s": [], "loss": [], "uplink_ok": [],
                    "converged_round": None, "protocol": fc.protocol,
-                   "model": fc.model, "task": fc.task, "codec": fc.codec,
-                   "sample_ratio": fc.sample_ratio,
-                   "cohort_size": fc.num_devices,
+                   "model": fc.model_key(), "task": fc.task,
+                   "codec": spec.name, "sample_ratio": fc.sample_ratio,
+                   "cohort_size": fc.cohort_size(pool),
                    "uplink_bits_first": plan.up_bits_first,
                    "uplink_bits": plan.up_bits,
                    "downlink_bits": plan.dn_bits,
                    "device": str(self.device)}
+        if acct is not None:
+            history["dp_epsilon"] = []
         for _ in range(fc.max_rounds):
             state, rec = self.round_once(state, dev_x, dev_y, test_x,
                                          test_y, plan=plan, log=log)
+            if acct is not None:
+                # a device spends budget only on rounds it released a
+                # noised payload: its cohort rounds
+                acct.step(cohort=rec["cohort"])
+                history["dp_epsilon"].append(acct.epsilon())
             for k in ("acc", "loss", "round_latency_s", "compute_s",
                       "local_s", "cum_time_s", "uplink_ok"):
                 history[k].append(rec[k])
         history["converged_round"] = state.converged_round
         history["seeds"] = summarize_seeds(state.seeds)
+        if acct is not None:
+            history["dp"] = acct.ledger()
         if fc.keep_seed_arrays:
             history["seed_arrays"] = state.seeds
         history["final_acc"] = history["acc"][-1]

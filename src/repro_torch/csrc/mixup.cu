@@ -14,10 +14,13 @@
 // has to keep each thread's work short.  A CTA loads its row's two
 // ratios once into registers, and each thread moves 16 bytes of a, b and
 // out (a float4, or eight bfloat16) with no index arithmetic beyond the
-// row's base.  Where a row's three bases are not at the same offset
-// within 16 bytes (an odd F, or a view that starts mid-row), the row is
-// done element by element; where they are, only the elements before the
-// first 16-byte boundary and after the last one are.
+// row's base.  A row longer than one CTA's 16-byte slots (the cifar rows
+// of 3072 float32, the speech rows of 1280) is split over several CTAs
+// (blockIdx.y), so that a thread moves one vector, not a chain of them.
+// Where a row's three bases are not at the same offset within 16 bytes
+// (an odd F, or a view that starts mid-row), the row is done element by
+// element; where they are, only the elements before the first 16-byte
+// boundary and after the last one are, by the row's first CTA.
 //
 // The ratios are float32 and the math runs in float32; bfloat16 operands
 // are widened and the result rounded to nearest even.  __fmul_rn /
@@ -89,9 +92,11 @@ __global__ void mixup_rows_kernel(const T* __restrict__ a,
     const int64_t lead = (int64_t)(((16 - off) & 15) / sizeof(T));
     const int64_t head = !vec ? f : lead < f ? lead : f;
     const int64_t tail = head + (f - head) / VEC * VEC;
-    for (int64_t i = head + (int64_t)threadIdx.x * VEC; i < tail;
-         i += (int64_t)blockDim.x * VEC)
+    const int64_t part = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
+    for (int64_t i = head + part * VEC; i < tail;
+         i += (int64_t)gridDim.y * blockDim.x * VEC)
       mix16(ar + i, br + i, orow + i, la, lb);
+    if (blockIdx.y != 0) continue;
     for (int64_t i = threadIdx.x; i < head; i += blockDim.x)
       store(orow + i, mix(la, to_f(ar[i]), lb, to_f(br[i])));
     for (int64_t i = tail + threadIdx.x; i < f; i += blockDim.x)
@@ -104,11 +109,16 @@ int launch(const void* a, const void* b, const void* lam_a,
            const void* lam_b, void* out, int64_t n, int64_t f,
            cudaStream_t s) {
   constexpr int VEC = 16 / sizeof(T);
-  // one thread per 16 bytes of a row (and one for its ends), in whole warps
+  // one thread per 16 bytes of a row (and one for its ends), in whole
+  // warps; a row past 256 threads' vectors takes several CTAs
   int64_t threads = (f / VEC + 2 + 31) / 32 * 32;
   if (threads > 256) threads = 256;
+  int64_t parts = (f / VEC + threads - 1) / threads;
+  if (parts > 16) parts = 16;
+  if (parts < 1) parts = 1;
   const int64_t blocks = n < 132 * 16 ? n : 132 * 16;  // rows loop beyond this
-  mixup_rows_kernel<T><<<(unsigned)blocks, (unsigned)threads, 0, s>>>(
+  mixup_rows_kernel<T><<<dim3((unsigned)blocks, (unsigned)parts),
+                         (unsigned)threads, 0, s>>>(
       (const T*)a, (const T*)b, (const float*)lam_a, (const float*)lam_b,
       (T*)out, n, f);
   return (int)cudaGetLastError();

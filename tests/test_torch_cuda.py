@@ -11,10 +11,13 @@ import torch
 
 from repro_torch import rng
 from repro_torch.channel import ChannelConfig
+from repro_torch.channel.payload import LinkConfig
 from repro_torch.core.graphs import StepGraph
 from repro_torch.core.protocols import (FederatedConfig, FederatedTrainer,
                                         make_local_train)
-from repro_torch.data import partition_iid, synthetic_images
+from repro_torch.core.sampling import SamplerConfig
+from repro_torch.data import (PartitionSpec, parse_task, partition_iid,
+                              synthetic_images)
 from repro_torch.kernels import runtime
 from repro_torch.kernels import ops
 from repro_torch.kernels.distill_loss import (distill_loss,
@@ -59,7 +62,10 @@ def test_mixup_kernel_matches_plain(gpu, n, f):
                                atol=0)
 
 
-@pytest.mark.parametrize("n,f", [(7, 3), (9, 5), (5, 1023), (100, 784)])
+# (100, 3072) and (100, 1280): the cifar and speech rows of the Fig. 2
+# seed exchange (10 devices x 10 seeds)
+@pytest.mark.parametrize("n,f", [(7, 3), (9, 5), (5, 1023), (100, 784),
+                                 (100, 3072), (100, 1280), (37, 1280)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mixup_kernel_is_bit_equal_to_plain(gpu, n, f, dtype):
     """Widths off the 16-byte vector (the scalar ends of a row), odd F in
@@ -152,12 +158,16 @@ def _step_inputs(gpu, D, B, C, seed, odd_rows=False):
 
 
 # the phase-4 shapes of chip_smoke.py: the main path's (10, 16, 10) with
-# and without KD, the CPU tests' (4, 16, 10), an odd (3, 5, 12), and zero
-# and unnormalised G_out rows
+# and without KD, the CPU tests' (4, 16, 10), an odd (3, 5, 12), zero
+# and unnormalised G_out rows, and the Fig. 2 path's (10, 32, 10), a
+# mixed cohort's or a sampled cohort's (5, 32, 10) and speech's
+# (10, 32, 12)
 @pytest.mark.parametrize("D,B,C,beta,odd_rows", [
     (10, 16, 10, 0.0, False), (10, 16, 10, 0.01, False),
     (4, 16, 10, 0.01, False), (3, 5, 12, 0.01, False),
-    (10, 16, 10, 0.01, True)])
+    (10, 16, 10, 0.01, True), (10, 32, 10, 0.01, False),
+    (5, 32, 10, 0.0, False), (5, 32, 10, 0.01, True),
+    (10, 32, 12, 0.01, False)])
 def test_distill_step_kernel_matches_plain(gpu, D, B, C, beta, odd_rows):
     z, y, gout, sums = _step_inputs(gpu, D, B, C, D + B + C, odd_rows)
     mine = [t.clone() for t in sums]
@@ -436,6 +446,41 @@ def test_mamba2_serve_smoke_on_gpu_matches_cpu(gpu):
     assert runtime.launch_counts()["ssd_scan"] == 2   # two layers
     want = serve("mamba2-370m", 2, 40, 6, smoke=True, device="cpu")
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(protocol="mix2fld", model="cnn+mlp"),
+    dict(protocol="fl", sampler=SamplerConfig(0.5),
+         channel=LinkConfig("quantize8")),
+    dict(protocol="mix2fld", channel=LinkConfig("dp_gaussian1.0"),
+         model="mlp"),
+    dict(protocol="fd", task="speech")])
+def test_fig2_configs_on_gpu_match_cpu(gpu, kw):
+    """The Fig. 2 slice's configs: card against CPU, each architecture
+    group's local steps through its own captured graph."""
+    task = parse_task(kw.get("task", "digits"))
+    x, y = task.data(rng.PRNGKey(42), 1400, device="cpu")
+    n_local = 4 + (task.num_classes - 2) * 29     # 2·2 + (C-2)·29
+    dev_x, dev_y = PartitionSpec("noniid", n_local=n_local).build(
+        x[:1200], y[:1200], 4, task.num_classes)
+    fc = FederatedConfig(num_devices=4, local_iters=8, local_batch=32,
+                         server_iters=8, server_batch=32, max_rounds=2,
+                         n_seed=6, n_inverse=12, **kw)
+    ch = ChannelConfig(num_devices=4, p_up_dbm=40.0)
+    runtime.reset_launch_counts()
+    tr = FederatedTrainer(None, fc, ch, device=gpu)
+    h_gpu = tr.run(dev_x, dev_y, x[1200:], y[1200:])
+    counts = runtime.launch_counts()
+    h_cpu = FederatedTrainer(None, fc, ch, device="cpu").run(
+        dev_x, dev_y, x[1200:], y[1200:])
+    groups = len(fc.arch_groups() or [None])
+    assert counts["distill_step"] == 2 * 8 * groups
+    assert len(tr.local_graphs) == groups
+    assert all(g.replays > 0 for g in tr.local_graphs)
+    np.testing.assert_allclose(h_gpu["loss"], h_cpu["loss"], atol=1e-4)
+    np.testing.assert_allclose(h_gpu["acc"], h_cpu["acc"], atol=1e-4)
+    for k in ("round_latency_s", "uplink_ok", "dp_epsilon"):
+        assert h_gpu.get(k) == h_cpu.get(k), k
 
 
 def test_a_failed_capture_raises_and_does_not_run_eagerly(gpu):

@@ -1,7 +1,9 @@
 """The port stands alone: no module of src/repro_torch, and neither
 chip_smoke.py nor the scripts under tools/, imports jax or anything of
-the reference package; and its entry points run on the GPU unless asked
-for the CPU."""
+the reference package; only the channel package reaches the raw channel
+model (``repro_torch.channel.model``), everything else goes through the
+link pipeline (the reference's ruff TID251 ban, as a test); and its
+entry points run on the GPU unless asked for the CPU."""
 import ast
 from pathlib import Path
 
@@ -11,7 +13,8 @@ import torch
 from repro_torch import rng
 from repro_torch.configs import get_config
 from repro_torch.core.protocols import FederatedConfig, FederatedTrainer
-from repro_torch.data import synthetic_images, synthetic_tokens
+from repro_torch.data import (parse_task, synthetic_audio, synthetic_images,
+                              synthetic_rgb_images, synthetic_tokens)
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import serve
 from repro_torch.models import CNN
@@ -23,12 +26,27 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
-def _imports(path):
+def _imports(path, resolve=False):
+    """The absolute names a file imports (with ``resolve``, relative
+    imports too, resolved against the file's package, and each imported
+    name as a submodule candidate)."""
+    package = []
+    if resolve and ROOT / "src" in path.parents:
+        package = list(path.relative_to(ROOT / "src").parent.parts)
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0:
+                base = node.module
+            elif not resolve:
+                continue
+            else:
+                up = package[:len(package) - node.level + 1]
+                base = ".".join(up + ([node.module] if node.module else []))
+            yield base
+            if resolve:
+                yield from (f"{base}.{a.name}" for a in node.names)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
@@ -39,12 +57,30 @@ def test_no_jax_or_reference_import(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+@pytest.mark.parametrize("path", [
+    p for p in FILES if ROOT / "src" / "repro_torch" / "channel"
+    not in p.parents], ids=lambda p: str(p.relative_to(ROOT)))
+def test_only_the_channel_package_imports_the_channel_model(path):
+    for name in _imports(path, resolve=True):
+        assert not name.startswith("repro_torch.channel.model"), (path,
+                                                                   name)
+
+
 def test_the_walk_sees_the_package():
     assert len(FILES) > 20
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"src/repro_torch/core/graphs.py",
             "src/repro_torch/core/conversion.py",
+            "src/repro_torch/core/sampling.py",
+            "src/repro_torch/core/privacy.py",
+            "src/repro_torch/models/registry.py",
+            "src/repro_torch/data/partition.py",
             "tools/round_ab.py"} <= names
+    # the import walk resolves relative imports: the pipeline's own
+    # import of the channel model is seen
+    assert "repro_torch.channel.model.round_trip_traced" in set(_imports(
+        ROOT / "src" / "repro_torch" / "channel" / "pipeline.py",
+        resolve=True))
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):
@@ -55,6 +91,15 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         FederatedTrainer(CNN(), FederatedConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synthetic_images(rng.PRNGKey(0), 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedTrainer(None, FederatedConfig(model="mlp", task="speech"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedTrainer(None, FederatedConfig(model="cnn+mlp",
+                                               protocol="fd"))
+    for make in (synthetic_rgb_images, synthetic_audio,
+                 parse_task("cifar").data):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(rng.PRNGKey(0), 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synthetic_tokens(rng.PRNGKey(1), 2, 8, 512)
     cfg = get_config("qwen2-0.5b-smoke")

@@ -4,6 +4,7 @@ import pytest
 
 from repro_torch.channel import ChannelConfig
 from repro_torch.core.protocols import FederatedConfig
+from repro_torch.core.sampling import ChurnConfig
 from test_torch_protocols_a import check_history, run_both
 
 
@@ -13,13 +14,17 @@ def test_mix2fld_run_matches_live_reference():
     assert got["seeds"]["hard_labels"] and got["seeds"]["n_pairs"] > 0
 
 
-@pytest.mark.parametrize("kw", [
-    dict(sample_ratio=0.5), dict(shard_devices=True),
-    dict(codec="quantize8"), dict(model="cnn+mlp"), dict(model="mlp"),
-    dict(task="cifar"), dict(model_partition=("cnn",) * 10)])
-def test_config_refuses_what_the_slice_does_not_run(kw):
+@pytest.mark.parametrize("make,kw", [
+    (FederatedConfig, dict(shard_devices=True)),
+    (FederatedConfig, dict(churn=ChurnConfig(p_active=0.5))),
+    (FederatedConfig, dict(model="transformer")),
+    (FederatedConfig, dict(model="cnn+transformer", protocol="fd")),
+    (FederatedConfig, dict(model_partition=("cnn", "tf"), num_devices=2,
+                           protocol="fd")),
+    (ChannelConfig, dict(compute_mean_s=0.1))])
+def test_config_refuses_what_the_slice_does_not_run(make, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FederatedConfig(**kw)
+        make(**kw)
 
 
 def test_config_validation_matches_reference():
@@ -32,3 +37,5 @@ def test_config_validation_matches_reference():
     assert FederatedConfig(protocol="mix2fd").protocol == "mixfld"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ChannelConfig(compute_mean_s=0.1)
+    with pytest.raises(TypeError, match="ChurnConfig"):
+        FederatedConfig(churn=0.5)

@@ -1,7 +1,8 @@
 """The reference loader for the port's parity tests.
 
-``load_reference()`` imports the JAX package's round loop, CNN, LM
-stack (dense and Mamba2), serve driver and kernels for the ``tests/test_torch_*.py``
+``load_reference()`` imports the JAX package's round loop, models and
+their registry, data, sampling, codecs and privacy, LM stack (dense and
+Mamba2), serve driver and kernels for the ``tests/test_torch_*.py``
 files.  Under the installed jax
 ``repro.models.transformer`` cannot be imported: its guard runs
 ``_obar_p not in _batching.primitive_batchers`` and jax 0.9's
@@ -38,11 +39,16 @@ _MODULES = {
     "conversion": "repro.core.conversion",
     "data": "repro.data",
     "synthetic": "repro.data.synthetic",
+    "partition": "repro.data.partition",
     "channel": "repro.channel",
     "channel_model": "repro.channel.model",
     "pipeline": "repro.channel.pipeline",
     "payload": "repro.channel.payload",
     "registry": "repro.registry",
+    "model_registry": "repro.models.registry",
+    "mlp": "repro.models.mlp",
+    "sampling": "repro.core.sampling",
+    "privacy": "repro.core.privacy",
     "configs": "repro.configs",
     "transformer": "repro.models.transformer",
     "attention": "repro.models.attention",
@@ -100,14 +106,24 @@ GOLDEN_P_UP_DBM = 40.0
 
 
 @functools.lru_cache(maxsize=None)
-def golden_data():
-    """The golden fixture, made by the reference: synthetic_images
-    (PRNGKey(42), 1400), partition_iid over the first 1200 samples."""
+def golden_pool(task="digits"):
+    """The golden pool, made by the reference: ``task``'s data from
+    PRNGKey(42), 1400 samples (synthetic_images for digits)."""
+    x, y = load_reference().data.parse_task(task).data(
+        jax.random.PRNGKey(42), 1400)
+    return np.asarray(x), np.asarray(y)
+
+
+@functools.lru_cache(maxsize=None)
+def golden_data(scheme="iid", task="digits", alpha=1.0):
+    """The golden fixture: the reference's ``PartitionSpec(scheme,
+    n_local=300)`` over the pool's first 1200 samples for 4 devices (iid:
+    partition_iid; noniid: 2·2 + 8·37), the rest as the test set."""
     ref = load_reference()
-    x, y = ref.data.synthetic_images(jax.random.PRNGKey(42), 1400)
-    x, y = np.asarray(x), np.asarray(y)
-    dev_x, dev_y = ref.data.partition_iid(x[:1200], y[:1200], 4, 300, 10,
-                                          seed=0)
+    x, y = golden_pool(task)
+    spec = ref.partition.PartitionSpec(scheme, n_local=300, alpha=alpha)
+    dev_x, dev_y = spec.build(x[:1200], y[:1200], 4,
+                              ref.data.parse_task(task).num_classes)
     return dev_x, dev_y, x[1200:], y[1200:]
 
 
