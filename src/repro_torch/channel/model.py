@@ -3,9 +3,13 @@
 SNR_{d,t} = P h_{d,t} r_d^-alpha / (W^y N_0),  h ~ Exp(1) IID.
 A slot decodes iff SNR >= theta, delivering tau * W^y * log2(1 + theta)
 bits.  Latency T^y = first slot where cumulative bits >= payload;
-outage if T^y > T_max.  The draws are the reference's (see ``rng``), so
-equal keys give equal masks and latencies.  The straggler stage
-(``compute_mean_s > 0``) waits for the service slice.
+outage if T^y > T_max.  The straggler stage (``compute_mean_s > 0``)
+draws each device's compute time ~ Exp(compute_mean_s) and drops the
+devices past ``deadline_s``.  The draws are the reference's (see
+``rng``), so equal keys give equal masks and latencies.  Every function
+here only issues device work and returns tensors (Python constants
+enter as scalars, never as host-to-device copies): the host reads them
+in ``LinkPlan.collect`` (``channel/pipeline.py``).
 """
 from __future__ import annotations
 
@@ -31,15 +35,12 @@ class ChannelConfig:
     theta: float = 3.0             # target SNR (linear)
     tau_s: float = 1e-3            # slot / coherence time
     t_max_slots: int = 100
-    # straggler model (disabled at the defaults; not ported yet)
+    # Straggler model: per-device local compute time ~ Exp(compute_mean_s)
+    # drawn each round; a device past deadline_s is dropped from the
+    # aggregation set exactly like an uplink outage.  The defaults
+    # disable the stage (no draw, no latency term).
     compute_mean_s: float = 0.0
     deadline_s: float = float("inf")
-
-    def __post_init__(self):
-        if self.compute_mean_s > 0.0:
-            raise NotImplementedError(
-                "the straggler stage (compute_mean_s > 0) is not ported "
-                "yet (ROADMAP A11)")
 
     def link_budget(self, up: bool) -> tuple[float, float]:
         """Returns (success probability per slot, bits per good slot)."""
@@ -70,12 +71,24 @@ def link_outcomes(key, p_success: float, slots: int, n_links: int,
     return torch.where(ok, first, t_max_slots), ok
 
 
-def slowest_ok_slots(t, ok, t_max_slots: int) -> int:
+def slowest_ok_slots(t, ok, t_max_slots: int):
     """Slots spent waiting on the slowest *successful* link; the full
-    window only when every link outages."""
-    if not bool(ok.any()):
-        return t_max_slots
-    return int(torch.where(ok, t, 0).max())
+    window only when every link outages.  A 0-dim tensor."""
+    return torch.where(ok.any(), torch.where(ok, t, 0).max(), t_max_slots)
+
+
+def compute_outcomes(key, mean_s: float, deadline_s: float, n_links: int):
+    """The straggler stage's draw: (compute_s (n,) float32, finished (n,)
+    bool), t ~ Exp(mean_s) and finished iff t <= deadline_s."""
+    t = rng.exponential(key, (n_links,)) * mean_s
+    return t, t <= deadline_s
+
+
+def slowest_ok_time(t, ok, deadline_s: float):
+    """Seconds spent waiting on the slowest device that *finished*; the
+    full deadline only when every device straggles.  A 0-dim float32."""
+    return torch.where(ok.any(), torch.where(ok, t, 0.0).max(),
+                       deadline_s)
 
 
 def round_trip_traced(key, p_up, up_slots, p_dn, dn_slots, n_links: int,
@@ -83,12 +96,11 @@ def round_trip_traced(key, p_up, up_slots, p_dn, dn_slots, n_links: int,
     """One round's uplink (FDMA unicast) + downlink (multicast) draw.
 
     Latency: tau * (slowest successful T_up + slowest successful T_dn),
-    rounded to float32 as the reference computes it."""
+    a 0-dim float32 tensor as the reference computes it."""
     k = rng.split(key, 2)
     t_up, ok_up = link_outcomes(k[0], p_up, up_slots, n_links, t_max_slots)
     t_dn, ok_dn = link_outcomes(k[1], p_dn, dn_slots, n_links, t_max_slots)
     slots = (slowest_ok_slots(t_up, ok_up, t_max_slots) +
              slowest_ok_slots(t_dn, ok_dn, t_max_slots))
-    latency_s = torch.tensor(tau_s, dtype=torch.float32) * float(slots)
     return {"up_ok": ok_up, "dn_ok": ok_dn, "t_up": t_up, "t_dn": t_dn,
-            "latency_s": float(latency_s)}
+            "latency_s": slots.to(torch.float32) * tau_s}

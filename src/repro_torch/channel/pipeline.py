@@ -5,7 +5,10 @@
   stage (``channel/payload.py``): what the server decodes of each
   device's payload;
 * :class:`LinkPlan` — the host-side link plan (per-slot success
-  probabilities and decode-slot counts) and its per-round draw;
+  probabilities and decode-slot counts) and its per-round draw, split
+  into :meth:`LinkPlan.dispatch` (device work only, no host copy or
+  sync; on CUDA on the device's side stream) and :meth:`LinkPlan.collect`
+  (every host read);
 * :func:`downlink_gout` / :func:`downlink_params` — the downlink
   broadcast, gated per device by ``dn_ok``.
 """
@@ -17,16 +20,28 @@ import torch
 
 from .. import rng
 from ..registry import canonical_protocol
-from .model import round_trip_traced
+from .model import compute_outcomes, round_trip_traced, slowest_ok_time
 from .payload import (CodecSpec, decode_params, decode_table, encode_params,
                       encode_table, parse_codec, round_slot_plan)
+
+
+_SIDE_STREAMS: dict = {}   # device -> the stream the draws run on
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    """The one side stream of ``device`` that every dispatched draw runs
+    on, in issue order."""
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
 
 
 @dataclasses.dataclass(frozen=True)
 class LinkPlan:
     """Host-side link plan of one (protocol, codec, channel) point.
     ``n_links`` is the cohort on air this round; the FDMA bandwidth split
-    stays at ``ChannelConfig.num_devices``."""
+    stays at ``ChannelConfig.num_devices``.  ``compute_mean_s`` and
+    ``deadline_s`` are the straggler stage's (off at the defaults)."""
     p_up: float
     p_dn: float
     up_slots_first: int
@@ -38,6 +53,8 @@ class LinkPlan:
     n_links: int
     t_max_slots: int
     tau_s: float
+    compute_mean_s: float = 0.0
+    deadline_s: float = float("inf")
 
     @classmethod
     def build(cls, protocol: str, ch, *, n_mod: int, n_labels: int,
@@ -52,19 +69,93 @@ class LinkPlan:
                    up_bits_first=plan["up_bits_first"],
                    up_bits=plan["up_bits"], dn_bits=plan["dn_bits"],
                    n_links=ch.num_devices if n_links is None else n_links,
-                   t_max_slots=ch.t_max_slots, tau_s=ch.tau_s)
+                   t_max_slots=ch.t_max_slots, tau_s=ch.tau_s,
+                   compute_mean_s=ch.compute_mean_s,
+                   deadline_s=ch.deadline_s)
 
-    def draw(self, key, first_round: bool) -> dict:
-        """One round's channel outcome: ``up_ok``/``dn_ok`` as numpy bool
-        arrays, per-link slot counts and ``latency_s``."""
+    def _stages(self, key, first_round: bool) -> dict:
         out = round_trip_traced(
             key, self.p_up,
             self.up_slots_first if first_round else self.up_slots,
             self.p_dn, self.dn_slots, self.n_links, self.t_max_slots,
             self.tau_s)
-        out["up_ok"] = out["up_ok"].cpu().numpy()
-        out["dn_ok"] = out["dn_ok"].cpu().numpy()
-        return out
+        pending = {"out": out, "comp": None}
+        if self.compute_mean_s > 0.0:
+            # its own fold of the key: the channel stream is unchanged
+            t, ok = compute_outcomes(rng.fold_in(key, 7),
+                                     self.compute_mean_s, self.deadline_s,
+                                     self.n_links)
+            pending["comp"] = (t, ok, slowest_ok_time(t, ok,
+                                                      self.deadline_s))
+        return pending
+
+    def dispatch(self, key, first_round: bool) -> dict:
+        """Issue one round's channel (+ straggler) draw without reading
+        anything back; :meth:`collect` reads it.  A link outcome is a
+        function of ``(plan, key)`` alone, so a round's draw may be
+        issued while earlier rounds train.
+
+        On CUDA the draw runs on the device's side stream, after the work
+        already queued on the current stream (which made ``key``), and
+        the handle holds an event recorded behind it.  Nothing here copies
+        from the host or waits for the card: the host's cost is issuing
+        the draw's launches (about a thousand elementwise threefry
+        operations), and like any launch it blocks only when the launch
+        queue is full.  ``key`` is marked as used
+        by the side stream, so the allocator keeps its memory until the
+        draw has read it even if the handle is dropped.  On the CPU the
+        draw runs at once."""
+        if key.device.type != "cuda":
+            return self._stages(key, first_round)
+        side = _side_stream(key.device)
+        side.wait_stream(torch.cuda.current_stream(key.device))
+        key.record_stream(side)
+        with torch.cuda.stream(side):
+            pending = self._stages(key, first_round)
+            pending["event"] = torch.cuda.Event()
+            pending["event"].record(side)
+        return pending
+
+    def collect(self, pending: dict) -> dict:
+        """Wait for a :meth:`dispatch` handle and assemble the round's
+        link outcome: ``up_ok``/``dn_ok`` as numpy bool arrays, per-link
+        slot counts and ``latency_s`` as a float.  With the straggler
+        stage, late devices are AND-masked out of ``up_ok`` (``comp_ok``,
+        ``t_comp_s``, ``n_straggle``), and the latency grows by the
+        slowest finishing device's compute time.
+
+        On CUDA the current stream waits for the side stream's event, and
+        the tensors that leave here are marked as used by the current
+        stream, so the allocator cannot hand their memory to the side
+        stream's next draw early."""
+        out = pending["out"]
+        event = pending.get("event")
+        if event is not None:
+            stream = torch.cuda.current_stream(out["t_up"].device)
+            stream.wait_event(event)
+            out["t_up"].record_stream(stream)
+            out["t_dn"].record_stream(stream)
+            event.synchronize()
+        up_ok = out["up_ok"].cpu().numpy()
+        latency_s = float(out["latency_s"])
+        result = {"up_ok": up_ok, "dn_ok": out["dn_ok"].cpu().numpy(),
+                  "t_up": out["t_up"], "t_dn": out["t_dn"]}
+        if pending["comp"] is not None:
+            t_comp, comp_ok, slowest = pending["comp"]
+            comp_ok = comp_ok.cpu().numpy()
+            result["up_ok"] = up_ok & comp_ok
+            result["comp_ok"] = comp_ok
+            result["t_comp_s"] = t_comp.cpu().numpy()
+            result["n_straggle"] = int((~comp_ok).sum())
+            latency_s += float(slowest)
+        result["latency_s"] = latency_s
+        return result
+
+    def draw(self, key, first_round: bool) -> dict:
+        """One round's channel outcome: :meth:`collect` of
+        :meth:`dispatch`, the serial schedule the overlapped one must
+        equal bit for bit."""
+        return self.collect(self.dispatch(key, first_round))
 
 
 def uplink_stage(spec: CodecSpec, protocol: str, dev_params, favg, key,

@@ -96,6 +96,20 @@ class GaussianAccountant:
     def epsilon_per_round(self) -> float:
         return gaussian_epsilon(self.sigma, self.delta, 1)
 
+    @property
+    def device_rounds(self) -> dict:
+        """``{device: rounds}`` of the nonzero participation counts (the
+        ledger format of older checkpoints)."""
+        (nz,) = np.nonzero(self.device_counts)
+        return {int(d): int(self.device_counts[d]) for d in nz}
+
+    @device_rounds.setter
+    def device_rounds(self, mapping: dict):
+        counts = np.zeros(max(map(int, mapping), default=-1) + 1, np.int64)
+        for d, c in mapping.items():
+            counts[int(d)] = int(c)
+        self.device_counts = counts
+
     def step(self, n: int = 1, cohort=None) -> "GaussianAccountant":
         """Record ``n`` rounds of release; ``cohort`` is the rounds'
         active-device indices (None: every device charged)."""

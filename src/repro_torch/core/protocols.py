@@ -16,12 +16,12 @@ a captured CUDA graph (``core/graphs.py``).  A mixed-architecture cohort
 with its own local train, so its own graph.  Client sampling
 (``sample_ratio < 1``) gathers the round's cohort off the pool before
 local SGD and scatters it back after the downlink.
-``FederatedTrainer.run`` loops over :meth:`FederatedTrainer.round_once`
-directly (the reference's ``LoopRoundProgram`` at depth 1).
+``FederatedTrainer.run`` drives :meth:`FederatedTrainer.round_once`
+through a ``core/program.py`` :class:`LoopRoundProgram`, as the service
+(``launch/service.py``) does with churned cohorts.
 
-Not ported yet, and refused by :class:`FederatedConfig`: device churn,
-the straggler stage and the service (ROADMAP A11), the sweep grid step
-(A12), the mesh-sharded path (A13) and the transformer classifier
+Not ported yet, and refused by :class:`FederatedConfig`: the sweep grid
+step (A12), the mesh-sharded path (A13) and the transformer classifier
 (A15).
 """
 from __future__ import annotations
@@ -48,6 +48,7 @@ from ..registry import (FLD_FAMILY, MODELS, PROTOCOLS,  # noqa: F401
 from .conversion import OutputToModel
 from .graphs import CapturedSteps
 from .privacy import GaussianAccountant
+from .program import LoopRoundProgram, ProgramOptions
 from .sampling import ChurnConfig, SamplerConfig
 from .seed_prep import collect_seeds, summarize_seeds
 from .state import RoundState
@@ -149,8 +150,6 @@ class FederatedConfig:
             if not isinstance(self.churn, ChurnConfig):
                 raise TypeError(f"churn must be a ChurnConfig, "
                                 f"got {type(self.churn).__name__}")
-            raise NotImplementedError(
-                "device churn is not ported yet (ROADMAP A11)")
         if self.shard_devices:
             raise NotImplementedError(
                 "the mesh-sharded device axis is not ported yet "
@@ -511,14 +510,20 @@ class FederatedTrainer:
         return new, favg, cnt, mloss
 
     def round_once(self, state: RoundState, dev_x, dev_y, test_x, test_y,
-                   *, plan: Optional[LinkPlan] = None, log=None):
+                   *, plan: Optional[LinkPlan] = None, log=None,
+                   _pending_link=None):
         """One federated round.  Returns ``(new_state, record)``.  The round
         number and every draw derive from ``state``; the tensors must lie
         on the trainer's device (``run`` moves them there).  ``dev_x`` and
         ``dev_y`` hold the device pool; with ``fc.sample_ratio < 1`` the
         round gathers its seeded cohort (``core/sampling.py``) off the
         pool, trains it, and scatters it back: devices outside the cohort
-        keep their parameters and tables."""
+        keep their parameters and tables.
+
+        ``_pending_link`` is a ``plan.dispatch`` handle of this round's
+        link draw (the :class:`LoopRoundProgram` passes it), collected
+        where the serial path would draw; it is dropped when the round
+        rebuilds the plan for another cohort size."""
         fc = self.fc
         proto = fc.protocol
         D_pool, n_local = dev_x.shape[:2]
@@ -541,6 +546,7 @@ class FederatedTrainer:
             dev_gout, dev_x, dev_y = dev_gout[jdx], dev_x[jdx], dev_y[jdx]
         if plan is None or plan.n_links != D:
             plan = self.link_plan(g_params, n_links=D)
+            _pending_link = None
 
         # ---- local updates (eq. 1 / 3) ----
         dkeys = rng.split(rng.fold_in(kr, 1), D)
@@ -554,7 +560,10 @@ class FederatedTrainer:
             seeds = collect_seeds(fc, dev_x, dev_y, rng.fold_in(kr, 2))
 
         # ---- link pipeline: encode -> channel -> decode ----
-        link = plan.draw(rng.fold_in(kr, 3), first_round=p == 1)
+        if _pending_link is not None:
+            link = plan.collect(_pending_link)
+        else:
+            link = plan.draw(rng.fold_in(kr, 3), first_round=p == 1)
         up_ok, dn_ok = link["up_ok"], link["dn_ok"]
         ok = torch.as_tensor(up_ok, device=self.device)
         dev_params_rx, favg_rx = self._uplink_stage(
@@ -642,17 +651,23 @@ class FederatedTrainer:
                   "round_latency_s": link["latency_s"],
                   "compute_s": compute_s, "local_s": local_s,
                   "cum_time_s": cum_time,
-                  "uplink_ok": int(up_ok.sum()), "n_active": D,
+                  "uplink_ok": int(up_ok.sum()),
+                  "n_straggle": int(link.get("n_straggle", 0)),
+                  "n_active": D,
                   "cohort": cohort,  # None: every pool device trained
                   "link": link}
         return new_state, record
 
-    def run(self, dev_x, dev_y, test_x, test_y, log=None):
+    def run(self, dev_x, dev_y, test_x, test_y, log=None,
+            options: Optional[ProgramOptions] = None):
         """Full protocol run over ``fc.max_rounds`` rounds.  Data may be
         numpy arrays or tensors; it is moved to the trainer's device.
         Returns the history dict (per-round accuracy, losses, latency,
         cumulative time, seed metadata; with the ``dp_gaussian`` codec
-        the epsilon after each round and the accountant's ledger)."""
+        the epsilon after each round and the accountant's ledger; the
+        dispatch window's stats under ``pipeline``).  ``options`` sets
+        the link-draw pipeline's depth (default 1); every depth gives
+        the same history."""
         fc = self.fc
         spec = self._codec
         dev_x, test_x = (self._tensor(a, torch.float32)
@@ -677,9 +692,11 @@ class FederatedTrainer:
                    "device": str(self.device)}
         if acct is not None:
             history["dp_epsilon"] = []
+        program = LoopRoundProgram(self, options).bind(
+            dev_x=dev_x, dev_y=dev_y, test_x=test_x, test_y=test_y,
+            plan=plan, log=log)
         for _ in range(fc.max_rounds):
-            state, rec = self.round_once(state, dev_x, dev_y, test_x,
-                                         test_y, plan=plan, log=log)
+            state, rec = program.step(state)
             if acct is not None:
                 # a device spends budget only on rounds it released a
                 # noised payload: its cohort rounds
@@ -688,6 +705,7 @@ class FederatedTrainer:
             for k in ("acc", "loss", "round_latency_s", "compute_s",
                       "local_s", "cum_time_s", "uplink_ok"):
                 history[k].append(rec[k])
+        history["pipeline"] = program.finalize()
         history["converged_round"] = state.converged_round
         history["seeds"] = summarize_seeds(state.seeds)
         if acct is not None:

@@ -6,8 +6,8 @@ sampler_seed, round, mechanism])`` on the host, as in the reference, so
 cohorts are bit-equal.  The cohort is a pure function of the seeds and
 the round: a resumed run re-draws the same cohorts.  Churn
 (:class:`ChurnConfig`) thresholds uniforms of its own stream
-(:data:`MECH_CHURN`); the type is here so that ``FederatedConfig`` can
-name it, and driving churn waits for the service (ROADMAP A11).
+(:data:`MECH_CHURN`), so the service's churned cohorts are a pure
+function of the seeds and the round too.
 """
 from __future__ import annotations
 
@@ -82,8 +82,9 @@ class SamplerConfig:
 @dataclasses.dataclass(frozen=True)
 class ChurnConfig:
     """Seeded device churn: each round every pool device is active with
-    probability ``p_active``, topped up to ``min_active``.  The draw
-    (``active_devices``) comes with the service (ROADMAP A11)."""
+    probability ``p_active``; a draw with fewer than ``min_active`` is
+    topped up from the same generator.  ``p_active = 1`` disables churn
+    (the stream is still drawn)."""
     p_active: float = 1.0
     min_active: int = 1
     seed: int = 0
@@ -95,3 +96,21 @@ class ChurnConfig:
         if self.min_active < 1:
             raise ValueError("min_active must be >= 1: a round needs at "
                              "least one training device")
+
+    def active_devices(self, fed_seed: int, round_: int,
+                       pool_size: int) -> np.ndarray:
+        """Sorted active-device indices of round ``round_``: the devices
+        whose uniform of the round's churn stream is below ``p_active``,
+        topped up to ``min_active`` by a choice among the others from the
+        same generator.  The stream is consumed even at ``p_active = 1``,
+        so nudging ``p_active`` across 1 shifts no other draw."""
+        u, gen = participation_uniforms(fed_seed, self.seed, round_,
+                                        pool_size, mechanism=MECH_CHURN)
+        mask = u < self.p_active
+        idx = np.flatnonzero(mask)
+        want = min(self.min_active, pool_size)
+        if len(idx) < want:
+            extra = gen.choice(np.flatnonzero(~mask), size=want - len(idx),
+                               replace=False)
+            idx = np.concatenate([idx, extra])
+        return np.sort(idx)

@@ -13,6 +13,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+_FIELDS = ("round", "key", "g_params", "dev_params", "gout", "dev_gout",
+           "prev", "converged_round", "seeds", "cum_time_s")
+#: the grid carry's historical key for ``converged_round``
+_ALIASES = {"converged": "converged_round"}
+
 
 @dataclasses.dataclass(frozen=True)
 class RoundState:
@@ -26,3 +31,22 @@ class RoundState:
     converged_round: Any = None
     seeds: Any = None
     cum_time_s: float = 0.0
+
+    @classmethod
+    def from_mapping(cls, m: Any) -> "RoundState":
+        """A state dict with the field names (``converged`` aliases
+        ``converged_round``) as a RoundState; a RoundState passes
+        through."""
+        if isinstance(m, cls):
+            return m
+        kw = {_ALIASES.get(k, k): v for k, v in dict(m).items()}
+        unknown = set(kw) - set(_FIELDS)
+        if unknown:
+            raise ValueError(f"unknown RoundState field(s) "
+                             f"{sorted(unknown)}; fields: {_FIELDS}")
+        return cls(**kw)
+
+    def replace(self, **kw) -> "RoundState":
+        """A copy with the given fields replaced."""
+        return dataclasses.replace(
+            self, **{_ALIASES.get(k, k): v for k, v in kw.items()})

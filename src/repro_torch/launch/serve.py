@@ -10,8 +10,13 @@ Usage (on the GPU; ``--device cpu`` runs the plain kernel versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       [--full]
 
-The federated classifier endpoint (``serve_classifier``) waits for the
-service stack (ROADMAP A11).
+Federated classifiers serve through the service's fixed-batch endpoint
+(``launch/service.py`` ``InferenceEndpoint``) with ``--classifier`` (a
+model registry name) and ``--task`` (the registry task that fixes the
+input geometry):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --classifier cnn \\
+      --task digits --batch 16
 """
 from __future__ import annotations
 
@@ -79,9 +84,48 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int,
     return gen_tokens
 
 
+def serve_classifier(model_name: str, task_name: str, batch: int,
+                     requests: int = 40, log=print, device=None):
+    """Single-shot classifier serving: the registry model at the task's
+    geometry (weights from PRNGKey(0), requests from the task's data at
+    PRNGKey(1)) behind the federated inference endpoint, one fixed batch
+    shape with the last batch padded.  Returns the predicted labels."""
+    from ..data.pipeline import parse_task
+    from ..models.registry import build_model
+    from .service import InferenceEndpoint
+
+    device = resolve_device(device)
+    task = parse_task(task_name)
+    model = build_model(model_name, task.input_shape, task.num_classes)
+    params = model.init(rng.PRNGKey(0, device))
+    log(f"classifier={model_name} task={task.name} "
+        f"input={task.input_shape} classes={task.num_classes} "
+        f"params={model.num_params(params)/1e3:.1f}K batch={batch}")
+    endpoint = InferenceEndpoint(model.apply, batch,
+                                 input_shape=task.input_shape,
+                                 device=device)
+    x, _ = task.data(rng.PRNGKey(1), requests, device=device)
+    endpoint.submit(x)
+    _sync(device)
+    t0 = time.perf_counter()
+    preds = endpoint.flush(params)
+    t_serve = time.perf_counter() - t0
+    log(f"served {preds.shape[0]} requests in {endpoint.batches} "
+        f"batches: {t_serve*1e3:.1f} ms "
+        f"({preds.shape[0] / max(t_serve, 1e-9):.0f} req/s)")
+    log(f"sample predictions: {preds[:12].tolist()}")
+    return preds
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--classifier", default=None,
+                    help="serve a federated classifier from the model "
+                         "registry instead of a token arch")
+    ap.add_argument("--task", default="digits",
+                    help="registry task fixing the classifier's input "
+                         "geometry (with --classifier)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
@@ -90,6 +134,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
+    if args.classifier is not None:
+        serve_classifier(args.classifier, args.task, args.batch,
+                         device=args.device)
+        return
     serve(args.arch, args.batch, args.prompt_len, args.gen,
           smoke=not args.full, device=args.device)
 

@@ -14,15 +14,18 @@ and ``jax/_src/random.py``:
   keys gives);
 * uint32 arithmetic runs in int64 with ``& 0xFFFFFFFF`` masking, because
   ``torch.uint32`` lacks shifts, xor and add on many backends;
-* everything runs on the key's device.
+* everything runs on the key's device, and no draw copies a value
+  from the host to it (Python constants enter as scalars), so a
+  draw issued on a side CUDA stream never waits for the card.
 
-Integer draws and ``uniform``/``bernoulli`` are bit-exact; ``normal`` and
-``gumbel`` go through ``erfinv``/``log``, whose last bits depend on the
-math library.
+Integer draws and ``uniform``/``bernoulli`` are bit-exact; ``normal``,
+``gumbel`` and ``exponential`` go through ``erfinv``/``log``/``log1p``,
+whose last bits depend on the math library.
 """
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 
@@ -74,8 +77,8 @@ def split(key, num: int = 2):
 
 def fold_in(key, data: int):
     """``jax.random.fold_in``: (..., 2) -> (..., 2)."""
-    lo = torch.tensor([int(data) & MASK], dtype=torch.int64,
-                      device=key.device)
+    lo = torch.full((1,), int(data) & MASK, dtype=torch.int64,
+                    device=key.device)
     b1, b2 = _hash(key, lo)
     return torch.stack([b1[..., 0], b2[..., 0]], dim=-1)
 
@@ -111,14 +114,22 @@ def randint(key, shape, minval: int, maxval: int):
     return off % span + minval
 
 
+def _to_f32(v: float) -> float:
+    """``v`` rounded to float32, as a Python float (a float32 tensor op
+    with a Python scalar rounds the scalar to float32 first)."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
             offset: int = 0):
     """``jax.random.uniform`` in float32: (..., 2) -> (..., *shape)."""
     bits = random_bits(key, shape, offset)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, f * (hi - lo) + lo)
+    # jax rounds both bounds to float32 and subtracts in float32; the
+    # double difference of two float32 values rounds to the same float32
+    lo = _to_f32(minval)
+    span = _to_f32(_to_f32(maxval) - lo)
+    return torch.clamp_min(f * span + lo, lo)
 
 
 def bernoulli(key, p: float, shape):
@@ -132,6 +143,11 @@ _TINY = torch.finfo(torch.float32).tiny
 def gumbel(key, shape):
     """``jax.random.gumbel`` (mode "low"): -log(-log(u)), u in [tiny, 1)."""
     return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+
+
+def exponential(key, shape):
+    """``jax.random.exponential`` in float32: -log1p(-u), u in [0, 1)."""
+    return -torch.log1p(-uniform(key, shape))
 
 
 # XLA's float32 ErfInv: Giles' single-precision polynomial.

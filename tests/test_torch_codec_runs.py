@@ -5,6 +5,7 @@ the Gaussian DP codec, whose epsilon ledger matches within rtol 1e-12."""
 import pytest
 
 from test_torch_protocols_a import check_history, run_both
+from test_torch_reference import one_thread_per_module  # noqa: F401
 
 
 @pytest.mark.filterwarnings("ignore::DeprecationWarning")

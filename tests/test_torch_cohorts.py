@@ -6,6 +6,7 @@ cohort (one captured local step per architecture group), an explicit
 import pytest
 
 from test_torch_protocols_a import check_history, run_both
+from test_torch_reference import one_thread_per_module  # noqa: F401
 
 
 @pytest.mark.parametrize("kw", [

@@ -10,12 +10,14 @@ import pytest
 import torch
 
 from repro_torch import rng
-from repro_torch.channel import ChannelConfig
+from repro_torch.channel import ChannelConfig, LinkPlan
 from repro_torch.channel.payload import LinkConfig
 from repro_torch.core.graphs import StepGraph
+from repro_torch.core.program import ProgramOptions
 from repro_torch.core.protocols import (FederatedConfig, FederatedTrainer,
                                         make_local_train)
-from repro_torch.core.sampling import SamplerConfig
+from repro_torch.core.sampling import ChurnConfig, SamplerConfig
+from repro_torch.core.seed_prep import summarize_seeds
 from repro_torch.data import (PartitionSpec, parse_task, partition_iid,
                               synthetic_images)
 from repro_torch.kernels import runtime
@@ -32,6 +34,7 @@ from repro_torch.kernels.flash_attention import (attention_plain,
 from repro_torch.kernels.mixup_kernel import mixup, mixup_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.launch.serve import serve
+from repro_torch.launch.service import FederatedService, InferenceEndpoint
 from repro_torch.models import CNN
 
 pytestmark = pytest.mark.cuda
@@ -481,6 +484,104 @@ def test_fig2_configs_on_gpu_match_cpu(gpu, kw):
     np.testing.assert_allclose(h_gpu["acc"], h_cpu["acc"], atol=1e-4)
     for k in ("round_latency_s", "uplink_ok", "dp_epsilon"):
         assert h_gpu.get(k) == h_cpu.get(k), k
+
+
+def _service(device, **kw):
+    x, y = synthetic_images(rng.PRNGKey(42), 1400, device="cpu")
+    dev_x, dev_y = partition_iid(x[:1200], y[:1200], 4, 300, 10, seed=0)
+    fc = FederatedConfig(protocol="mix2fld", num_devices=4, local_iters=8,
+                         local_batch=16, server_iters=8, server_batch=16,
+                         n_seed=6, n_inverse=12)
+    ch = ChannelConfig(num_devices=4, p_up_dbm=40.0, compute_mean_s=0.05,
+                       deadline_s=0.08)
+    svc = FederatedService(
+        None, fc, ch, churn=ChurnConfig(p_active=0.6, min_active=2, seed=3),
+        options=ProgramOptions(pipeline_depth=2), device=device, **kw)
+    return svc.bind_data(dev_x, dev_y, x[1200:], y[1200:])
+
+
+def test_service_rounds_on_gpu_match_cpu(gpu, tmp_path):
+    """Churn, stragglers and the depth-2 window on the card against the
+    CPU; then a restore on the card continues its own run bit for bit
+    (the service's rounds run cuDNN's deterministic algorithms)."""
+    runtime.reset_launch_counts()
+    svc = _service(gpu, ckpt_dir=str(tmp_path))
+    got = svc.run_rounds(4)
+    counts = runtime.launch_counts()
+    want = _service("cpu").run_rounds(4)
+    # round 1's exchange: the devices' Mixup, and one launch for each
+    # side of the inverse-Mixup when the uploads hold symmetric pairs
+    pairs = "2" in summarize_seeds(svc.state.seeds)["cycle_hist"]
+    assert counts["mixup"] == 1 + 2 * pairs
+    assert counts["distill_step"] == 4 * 8
+    assert len({r["n_active"] for r in got}) > 1
+    for g, w in zip(got, want):
+        for k in ("round", "uplink_ok", "n_straggle", "n_active"):
+            assert g[k] == w[k], k
+        np.testing.assert_array_equal(g["active"], w["active"])
+        np.testing.assert_allclose(g["loss"], w["loss"], atol=1e-4)
+        np.testing.assert_allclose(g["acc"], w["acc"], atol=1e-4)
+        np.testing.assert_allclose(g["round_latency_s"],
+                                   w["round_latency_s"], rtol=1e-6)
+    again = _service(gpu, ckpt_dir=str(tmp_path))
+    assert again.restore(step=2) == 2
+    assert again.state.g_params["conv1"]["w"].device.type == "cuda"
+    for g, w in zip(again.run_rounds(2), got[2:]):
+        for k in ("uplink_ok", "n_straggle", "n_active",
+                  "round_latency_s", "acc", "loss"):
+            assert g[k] == w[k], k
+    assert not torch.backends.cudnn.deterministic   # restored after
+
+
+def test_side_stream_dispatch_collects_the_draw(gpu):
+    """Draws dispatched on a side stream while the current stream is
+    busy neither copy from the host nor wait for the card (torch.cuda's
+    sync debug mode raises on either), and collect to the serial draw on
+    the card, and to the CPU's."""
+    plan = LinkPlan.build("mix2fld", ChannelConfig(
+        num_devices=10, compute_mean_s=0.05, deadline_s=0.15),
+        n_mod=12490, n_labels=10, sample_bits=6272, n_seed=10)
+    keys = [rng.fold_in(rng.fold_in(rng.PRNGKey(0, gpu), q), 3)
+            for q in range(1, 5)]
+    a = torch.rand(2048, 2048, device=gpu)
+    handles = []
+    plan.draw(keys[0], first_round=True)    # makes the side stream
+    for q, k in enumerate(keys):
+        a = a @ a / 2048.0                  # the current stream is busy
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handles.append(plan.dispatch(k, first_round=q == 0))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert "event" in handles[-1]
+    for q in (2, 0, 3, 1):
+        got = plan.collect(handles[q])
+        serial = plan.draw(keys[q], first_round=q == 0)
+        cpu = plan.draw(keys[q].cpu(), first_round=q == 0)
+        for k in ("up_ok", "dn_ok", "comp_ok"):
+            np.testing.assert_array_equal(got[k], serial[k])
+            np.testing.assert_array_equal(got[k], cpu[k])
+        assert got["latency_s"] == serial["latency_s"]
+        np.testing.assert_allclose(got["latency_s"], cpu["latency_s"],
+                                   rtol=1e-6)
+        assert got["t_up"].device.type == "cuda"
+
+
+def test_endpoint_on_gpu_matches_cpu(gpu):
+    model = CNN()
+    params = model.init(rng.PRNGKey(0, gpu))
+    x, _ = synthetic_images(rng.PRNGKey(1), 40, device="cpu")
+    on_gpu = InferenceEndpoint(model.apply, 16, input_shape=(28, 28, 1),
+                               device=gpu)
+    on_cpu = InferenceEndpoint(model.apply, 16, input_shape=(28, 28, 1),
+                               device="cpu")
+    on_gpu.submit(x)
+    on_cpu.submit(x)
+    got = on_gpu.flush(params)
+    want = on_cpu.flush({k: {n: t.cpu() for n, t in v.items()}
+                         for k, v in params.items()})
+    np.testing.assert_array_equal(got, want)
+    assert on_gpu.batches == 3 and on_gpu.served == 40
 
 
 def test_a_failed_capture_raises_and_does_not_run_eagerly(gpu):

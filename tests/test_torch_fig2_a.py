@@ -6,7 +6,7 @@ files for the parallel workers."""
 import pytest
 
 from test_torch_protocols_a import check_history, run_both
-from test_torch_reference import golden_data
+from test_torch_reference import golden_data, one_thread_per_module  # noqa: F401
 
 
 @pytest.mark.parametrize("protocol", ["fl", "fd", "fld"])

@@ -3,7 +3,7 @@ and Mix2FLD on a Dirichlet partition (alpha 0.5)."""
 import pytest
 
 from test_torch_protocols_a import check_history, run_both
-from test_torch_reference import golden_data
+from test_torch_reference import golden_data, one_thread_per_module  # noqa: F401
 
 
 @pytest.mark.parametrize("protocol", ["mixfld", "mix2fld"])

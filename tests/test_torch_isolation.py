@@ -16,7 +16,8 @@ from repro_torch.core.protocols import FederatedConfig, FederatedTrainer
 from repro_torch.data import (parse_task, synthetic_audio, synthetic_images,
                               synthetic_rgb_images, synthetic_tokens)
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import serve
+from repro_torch.launch.serve import serve, serve_classifier
+from repro_torch.launch.service import FederatedService, InferenceEndpoint
 from repro_torch.models import CNN
 from repro_torch.models.kvcache import init_cache
 from repro_torch.models.transformer import init_params
@@ -75,6 +76,9 @@ def test_the_walk_sees_the_package():
             "src/repro_torch/core/privacy.py",
             "src/repro_torch/models/registry.py",
             "src/repro_torch/data/partition.py",
+            "src/repro_torch/core/program.py",
+            "src/repro_torch/checkpoint/__init__.py",
+            "src/repro_torch/launch/service.py",
             "tools/round_ab.py"} <= names
     # the import walk resolves relative imports: the pipeline's own
     # import of the channel model is seen
@@ -116,4 +120,10 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         init_cache(ssm, 2, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve("mamba2-370m", 2, 8, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedService(CNN(), FederatedConfig(num_devices=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEndpoint(CNN().apply)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_classifier("cnn", "digits", 4)
     assert resolve_device("cpu") == torch.device("cpu")

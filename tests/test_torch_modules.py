@@ -15,7 +15,9 @@ from repro_torch.core.seed_prep import collect_seeds, summarize_seeds
 from repro_torch.kernels.distill_loss import distill_phi_psi
 from repro_torch.models import CNN, from_jax_params, to_jax_params
 from test_torch_reference import (GOLDEN_CFG, GOLDEN_P_UP_DBM, golden_data,
-                                  load_reference)
+                                  load_reference,
+                                  one_thread_per_module)  # noqa: F401
+
 
 # a few float32 ulps per step, accumulated over the steps of a round
 ATOL = 1e-5

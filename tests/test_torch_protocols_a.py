@@ -18,7 +18,8 @@ import pytest
 from repro_torch.channel import ChannelConfig
 from repro_torch.core.protocols import FederatedConfig, FederatedTrainer
 from test_torch_reference import (GOLDEN_CFG, GOLDEN_P_UP_DBM, golden_data,
-                                  load_reference)
+                                  load_reference,
+                                  one_thread_per_module)  # noqa: F401
 
 
 def run_both(protocol, data=None, **kw):

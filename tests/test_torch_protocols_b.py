@@ -2,6 +2,7 @@
 import pytest
 
 from test_torch_protocols_a import check_history, run_both
+from test_torch_reference import one_thread_per_module  # noqa: F401
 
 
 @pytest.mark.parametrize("protocol", ["fld", "mixfld"])

@@ -2,8 +2,8 @@
 
 ``load_reference()`` imports the JAX package's round loop, models and
 their registry, data, sampling, codecs and privacy, LM stack (dense and
-Mamba2), serve driver and kernels for the ``tests/test_torch_*.py``
-files.  Under the installed jax
+Mamba2), serve driver, kernels, round program, checkpoint and service
+for the ``tests/test_torch_*.py`` files.  Under the installed jax
 ``repro.models.transformer`` cannot be imported: its guard runs
 ``_obar_p not in _batching.primitive_batchers`` and jax 0.9's
 ``PrimitiveBatchersProxy`` has no ``__contains__`` (ROADMAP C1).  The
@@ -16,6 +16,7 @@ behaviour with or without these tests in their process.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import importlib
 import sys
@@ -24,6 +25,7 @@ import types
 import jax
 import numpy as np
 import pytest
+import torch
 from jax._src.interpreters import batching
 
 _MODULES = {
@@ -61,6 +63,10 @@ _MODULES = {
     "ops": "repro.kernels.ops",
     "mamba2": "repro.models.mamba2",
     "ssd_scan": "repro.kernels.ssd_scan",
+    "state": "repro.core.state",
+    "program": "repro.core.program",
+    "checkpoint": "repro.checkpoint",
+    "service": "repro.launch.service",
 }
 
 
@@ -96,6 +102,28 @@ def load_reference() -> types.SimpleNamespace:
     """The reference modules by short name (see ``_MODULES``), imported
     once per process."""
     return _load_reference()
+
+
+@contextlib.contextmanager
+def one_intra_op_thread():
+    """One torch intra-op thread for the block (restored after).  The
+    parity runs' CPU ops are small; with several test workers sharing
+    the cores, the default thread pool's threads wait for each other far
+    longer than the ops take."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread_per_module():
+    """:func:`one_intra_op_thread` around each module's tests; autouse in
+    every parity module that imports it by name."""
+    with one_intra_op_thread():
+        yield
 
 
 # the reference's golden round-loop config (tests/test_protocols.py)

@@ -22,7 +22,7 @@ from repro_torch.data import synthetic_tokens
 from repro_torch.launch import serve as port_serve
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer
-from test_torch_reference import load_reference
+from test_torch_reference import load_reference, one_thread_per_module  # noqa: F401
 
 
 def _quiet(*_):
