@@ -60,21 +60,28 @@ def slots_needed(payload_bits: float, bits_per_slot: float) -> int:
     return max(1, math.ceil(payload_bits / bits_per_slot))
 
 
-def link_outcomes(key, p_success: float, slots: int, n_links: int,
+def link_outcomes(key, p_success, slots, n_links: int,
                   t_max_slots: int):
-    """(latency_slots (n,), success (n,)): a link's latency is the first
-    slot where its decoded slots reach ``slots``, t_max on outage."""
+    """(latency_slots (..., n), success (..., n)): a link's latency is the
+    first slot where its decoded slots reach ``slots``, t_max on outage.
+    ``key`` (..., 2) may carry leading grid axes; ``p_success`` and
+    ``slots`` are then numbers or tensors over them (a sweep group's
+    per-point link budgets), and each point draws what a loop run with
+    its key and budget draws."""
     good = rng.bernoulli(key, p_success, (n_links, t_max_slots))
-    reached = torch.cumsum(good.to(torch.int32), dim=1) >= slots
-    ok = reached.any(dim=1)
-    first = reached.to(torch.int8).argmax(dim=1) + 1
+    if torch.is_tensor(slots):
+        slots = slots.reshape(slots.shape + (1, 1))
+    reached = torch.cumsum(good.to(torch.int32), dim=-1) >= slots
+    ok = reached.any(dim=-1)
+    first = reached.to(torch.int8).argmax(dim=-1) + 1
     return torch.where(ok, first, t_max_slots), ok
 
 
 def slowest_ok_slots(t, ok, t_max_slots: int):
     """Slots spent waiting on the slowest *successful* link; the full
-    window only when every link outages.  A 0-dim tensor."""
-    return torch.where(ok.any(), torch.where(ok, t, 0).max(), t_max_slots)
+    window only when every link outages.  Reduces the last (link) axis."""
+    return torch.where(ok.any(dim=-1),
+                       torch.where(ok, t, 0).amax(dim=-1), t_max_slots)
 
 
 def compute_outcomes(key, mean_s: float, deadline_s: float, n_links: int):
@@ -96,10 +103,15 @@ def round_trip_traced(key, p_up, up_slots, p_dn, dn_slots, n_links: int,
     """One round's uplink (FDMA unicast) + downlink (multicast) draw.
 
     Latency: tau * (slowest successful T_up + slowest successful T_dn),
-    a 0-dim float32 tensor as the reference computes it."""
+    a float32 tensor as the reference computes it: 0-dim for one key
+    (2,); (G,) for a sweep group's keys (G, 2) with (G,) tensors of
+    ``p_up``, ``up_slots``, ``p_dn`` and ``dn_slots``, the reference's
+    vmap of this draw over the grid."""
     k = rng.split(key, 2)
-    t_up, ok_up = link_outcomes(k[0], p_up, up_slots, n_links, t_max_slots)
-    t_dn, ok_dn = link_outcomes(k[1], p_dn, dn_slots, n_links, t_max_slots)
+    t_up, ok_up = link_outcomes(k[..., 0, :], p_up, up_slots, n_links,
+                                t_max_slots)
+    t_dn, ok_dn = link_outcomes(k[..., 1, :], p_dn, dn_slots, n_links,
+                                t_max_slots)
     slots = (slowest_ok_slots(t_up, ok_up, t_max_slots) +
              slowest_ok_slots(t_dn, ok_dn, t_max_slots))
     return {"up_ok": ok_up, "dn_ok": ok_dn, "t_up": t_up, "t_dn": t_dn,

@@ -20,7 +20,12 @@ The first-round seed samples and the downlink stay uncoded.
 
 The codec functions work on a device-stacked payload: tables (D, C, C)
 and parameter leaves (D, ...), with one key per device (D, 2) — the
-reference's ``vmap`` over devices.  The random draws follow the
+reference's ``vmap`` over devices.  ``rows`` optionally gives each row its
+own numeric parameters, ``{"levels", "noise", "clip"}`` tensors of one
+value a row (a sweep group's points, each with its own ``quant_bits``,
+``dp_sigma`` and ``dp_clip``; ``noise`` is ``dp_sigma * dp_clip``,
+multiplied on the host as the loop path multiplies its floats).  The
+random draws follow the
 reference's: a parameter tree's leaves take ``fold_in(key, i)`` in
 ``jax.tree.flatten`` order (dict keys sorted) and draw in the
 reference's leaf shape.  The port keeps the CNN's conv weights OIHW
@@ -171,18 +176,28 @@ def _map(params, fn):
             for k, v in params.items()}
 
 
-def encode_table(spec: CodecSpec, table, key, ref):
+def _numeric(spec: CodecSpec, rows, like):
+    """(levels, noise, clip): the spec's floats, or ``rows``'s per-row
+    tensors shaped to broadcast over ``like`` (D, ...)."""
+    if rows is None:
+        return spec.levels, spec.dp_sigma * spec.dp_clip, spec.dp_clip
+    shape = (-1,) + (1,) * (like.dim() - 1)
+    return tuple(rows[n].reshape(shape) for n in ("levels", "noise", "clip"))
+
+
+def encode_table(spec: CodecSpec, table, key, ref, rows=None):
     """Encode every device's soft-label table: ``table`` (D, C, C), keys
     (D, 2), ``ref`` (D, C, C) each device's receiver-tracked previous
     global average (its ``dev_gout`` copy)."""
     if spec.name == "identity":
         return table
+    levels, noise, clip = _numeric(spec, rows, table)
     if spec.name == "quantize":
         u = rng.uniform(key, tuple(table.shape[1:]))
-        return stochastic_round(table, u, spec.levels)
+        return stochastic_round(table, u, levels)
     if spec.name == "delta":
         return table - ref
-    return gaussian_mechanism(table, key, spec.dp_sigma, spec.dp_clip)
+    return gaussian_mechanism(table, key, noise, clip)
 
 
 def decode_table(spec: CodecSpec, coded, ref):
@@ -191,10 +206,10 @@ def decode_table(spec: CodecSpec, coded, ref):
     return coded + ref if spec.name == "delta" else coded
 
 
-def encode_params(spec: CodecSpec, params, key, ref):
+def encode_params(spec: CodecSpec, params, key, ref, rows=None):
     """Encode every device's model parameters (FL uplink): ``params``
     leaves (D, ...), keys (D, 2), ``ref`` the round's starting global
-    model (leaves without the device axis)."""
+    model (leaves without the device axis, or with it: one a device)."""
     if spec.name == "identity":
         return params
     if spec.name == "delta":
@@ -203,7 +218,8 @@ def encode_params(spec: CodecSpec, params, key, ref):
     keys = {leaf: rng.fold_in(key, i) for leaf, i in order.items()}
     if spec.name == "quantize":
         return _map(params, lambda k, n, t: quantize_affine(
-            t, _draw(rng.uniform, keys[k, n], t), spec.levels))
+            t, _draw(rng.uniform, keys[k, n], t),
+            _numeric(spec, rows, t)[0]))
     # dp_gaussian: the clip bounds each device's global norm over its
     # leaves, summed in the reference's leaf order
     sq = None
@@ -211,11 +227,10 @@ def encode_params(spec: CodecSpec, params, key, ref):
         t = params[k][n]
         s = (t * t).sum(_per_row(t))
         sq = s if sq is None else sq + s
-    scale = clip_scale(sq, spec.dp_clip)
-    noise = spec.dp_sigma * spec.dp_clip
+    scale = clip_scale(sq, _numeric(spec, rows, sq)[2])
     return _map(params, lambda k, n, t: (
         t * scale.reshape((-1,) + (1,) * (t.dim() - 1))
-        + noise * _draw(rng.normal, keys[k, n], t)))
+        + _numeric(spec, rows, t)[1] * _draw(rng.normal, keys[k, n], t)))
 
 
 def decode_params(spec: CodecSpec, coded, ref):

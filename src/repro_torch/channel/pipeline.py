@@ -3,7 +3,12 @@
 
 * :func:`uplink_stage` / :func:`make_uplink_stage` — the uplink codec
   stage (``channel/payload.py``): what the server decodes of each
-  device's payload;
+  device's payload; :func:`grid_uplink_stage` the same for a sweep
+  group's stacked points, each with its own codec parameters;
+* ``round_trip_traced`` (``channel/model.py``, the channel draw itself,
+  batched over a sweep group's points: (G, 2) keys and (G,) link
+  budgets), passed on here: code outside the channel package reaches
+  the channel model only through this module;
 * :class:`LinkPlan` — the host-side link plan (per-slot success
   probabilities and decode-slot counts) and its per-round draw, split
   into :meth:`LinkPlan.dispatch` (device work only, no host copy or
@@ -169,13 +174,46 @@ def uplink_stage(spec: CodecSpec, protocol: str, dev_params, favg, key,
     ``identity`` draws nothing and returns its inputs."""
     if spec.name == "identity":
         return dev_params, favg
+    dkeys = rng.split(key, _n_rows(dev_params, favg))
+    return _code(spec, protocol, dev_params, favg, dkeys, dev_gout,
+                 g_params)
+
+
+def grid_uplink_stage(spec: CodecSpec, protocol: str, dev_params, favg,
+                      key, dev_gout, g_params, rows):
+    """:func:`uplink_stage` for a sweep group of G points of n devices,
+    stacked: ``dev_params`` leaves, ``favg`` and ``dev_gout`` (G n, ...)
+    with point g's device d at row ``g n + d``, ``key`` (G, 2) one a
+    point, ``g_params`` leaves (G, ...), and ``rows`` the per-row
+    numeric parameters (``channel/payload.py``).  Device d of point g
+    encodes with ``split(key[g], n)[d]``, as its loop run does."""
+    if spec.name == "identity":
+        return dev_params, favg
+    G = key.shape[0]
+    n = _n_rows(dev_params, favg) // G
+    dkeys = rng.split(key, n).reshape(G * n, 2)
+    ref = None
+    if canonical_protocol(protocol) == "fl":   # each device's reference
+        ref = {k: {m: t[:, None].expand((G, n) + tuple(t.shape[1:]))
+                   .reshape((G * n,) + tuple(t.shape[1:]))
+                   for m, t in v.items()} for k, v in g_params.items()}
+    return _code(spec, protocol, dev_params, favg, dkeys, dev_gout, ref,
+                 rows)
+
+
+def _n_rows(dev_params, favg) -> int:
+    """Device rows of a payload (FL rounds may carry no table)."""
+    if favg is not None:
+        return favg.shape[0]
+    return next(iter(next(iter(dev_params.values())).values())).shape[0]
+
+
+def _code(spec, protocol, dev_params, favg, dkeys, dev_gout, g_params,
+          rows=None):
     if canonical_protocol(protocol) == "fl":
-        leaf = next(iter(next(iter(dev_params.values())).values()))
-        dkeys = rng.split(key, leaf.shape[0])
-        coded = encode_params(spec, dev_params, dkeys, g_params)
+        coded = encode_params(spec, dev_params, dkeys, g_params, rows)
         return decode_params(spec, coded, g_params), favg
-    dkeys = rng.split(key, favg.shape[0])
-    coded = encode_table(spec, favg, dkeys, dev_gout)
+    coded = encode_table(spec, favg, dkeys, dev_gout, rows)
     return dev_params, decode_table(spec, coded, dev_gout)
 
 
@@ -193,17 +231,22 @@ def make_uplink_stage(codec, protocol: str):
 
 def downlink_gout(dev_gout, gout, dn_ok):
     """Deliver the new G_out table to the devices whose downlink decoded;
-    the rest keep their copy.  dev_gout (D, C, C), gout (C, C), dn_ok
-    (D,) bool."""
-    return torch.where(dn_ok[:, None, None], gout[None], dev_gout)
+    the rest keep their copy.  dev_gout (..., D, C, C), gout (..., C, C),
+    dn_ok (..., D) bool: a loop round's (D, ...) or a sweep group's
+    (G, D, ...)."""
+    return torch.where(dn_ok[..., None, None], gout.unsqueeze(-3),
+                       dev_gout)
 
 
 def downlink_params(dev_params, g_params, dn_ok):
     """Deliver the global model to the devices whose downlink decoded.
-    ``dev_params`` leaves (D, ...), ``g_params`` leaves (...)."""
+    ``dev_params`` leaves (..., D, *p), ``g_params`` leaves (..., *p),
+    ``dn_ok`` (..., D): a loop round's or a sweep group's."""
+    nb = dn_ok.dim()
+
     def leaf(dp, gp):
-        mask = dn_ok.reshape((-1,) + (1,) * (dp.dim() - 1))
-        return torch.where(mask, gp[None], dp)
+        mask = dn_ok.reshape(dn_ok.shape + (1,) * (dp.dim() - nb))
+        return torch.where(mask, gp.unsqueeze(nb - 1), dp)
 
     return {k: {n: leaf(v[n], g_params[k][n]) for n in v}
             for k, v in dev_params.items()}

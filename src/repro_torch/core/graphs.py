@@ -172,12 +172,11 @@ class CapturedSteps:
         return [b for b, _ in self._built.values()]
 
     def __call__(self, make_step, params, inputs: dict, outputs: dict,
-                 n: int, key=()):
+                 n: int):
         """``make_step(buf)`` returns the step on the :class:`StepBuffers`
         ``buf`` (called when the layout is first seen); ``outputs`` maps
-        names to shapes; ``key`` holds what the step freezes beyond the
-        shapes (eta, beta).  Returns (trained params, outputs)."""
-        layout = (key, tuple((k, m, tuple(t.shape)) for k, v in
+        names to shapes.  Returns (trained params, outputs)."""
+        layout = (tuple((k, m, tuple(t.shape)) for k, v in
                              params.items() for m, t in v.items()),
                   tuple((name, t.device, t.dtype, tuple(t.shape))
                         for name, t in inputs.items()))

@@ -11,18 +11,27 @@ import torch
 from ..kernels.distill_loss import distill_phi_psi
 
 
+def ce_terms(logp, labels):
+    """phi's per-sample terms from log-probabilities logp (..., C);
+    labels int (...,) or one-hot/soft (..., C)."""
+    if not labels.is_floating_point():
+        return -logp.gather(-1, labels[..., None])[..., 0]
+    return -(labels * logp).sum(-1)
+
+
+def kd_terms(logp, target_probs):
+    """psi's per-sample terms from log-probabilities logp (..., C)."""
+    return -(target_probs * logp).sum(-1)
+
+
 def cross_entropy(logits, labels):
     """phi: mean CE. logits (..., C); labels int (...,) or one-hot/soft."""
-    logp = torch.log_softmax(logits, dim=-1)
-    if not labels.is_floating_point():
-        return -logp.gather(-1, labels[..., None])[..., 0].mean()
-    return -(labels * logp).sum(-1).mean()
+    return ce_terms(torch.log_softmax(logits, dim=-1), labels).mean()
 
 
 def kd_regularizer(logits, target_probs):
     """psi: CE between teacher distribution and student prediction."""
-    logp = torch.log_softmax(logits, dim=-1)
-    return -(target_probs * logp).sum(-1).mean()
+    return kd_terms(torch.log_softmax(logits, dim=-1), target_probs).mean()
 
 
 def fd_loss(logits, labels, gout, beta: float, *, use_kernel=None):

@@ -51,14 +51,16 @@ def clip_by_norm(x, clip):
     return x * clip_scale((x * x).sum(), clip)
 
 
-def gaussian_mechanism(x, key, sigma, clip):
-    """Clip ``x`` to L2 norm ``clip`` and add N(0, (sigma clip)^2) noise
-    per element: one (eps0, delta)-DP release.  ``key`` (..., 2) may hold
-    one key per leading row of ``x`` (the reference's vmap over
-    devices); each row is then clipped on its own."""
+def gaussian_mechanism(x, key, noise, clip):
+    """Clip ``x`` to L2 norm ``clip`` and add N(0, noise^2) noise per
+    element, ``noise`` the standard deviation ``sigma * clip``: one
+    (eps0, delta)-DP release.  ``key`` (..., 2) may hold one key per
+    leading row of ``x`` (the reference's vmap over devices); each row
+    is then clipped on its own, and ``noise`` and ``clip`` may be
+    tensors of one value a row."""
     batch = key.shape[:-1]
     shape = tuple(x.shape[len(batch):])
-    noise = sigma * clip * rng.normal(key, shape)
+    noise = noise * rng.normal(key, shape)
     dims = tuple(range(len(batch), x.dim()))
     sq = (x * x).sum(dims, keepdim=True) if dims else x * x
     return x * clip_scale(sq, clip) + noise

@@ -15,13 +15,18 @@ service, ``launch/service.py``).
   changes when a draw is issued, never what it returns: every depth
   gives the same records bit for bit.
 
-The compiled sweep program (``GridRoundProgram``) comes with the sweep
-engine (ROADMAP A12).
+* :class:`GridRoundProgram` — the sweep engine's program
+  (``sweep/engine.py``): ``step`` enqueues a group's whole schedule, one
+  grid round step (``core/protocols.py`` :class:`GridRoundStep`) per
+  round, without reading anything back; ``finalize`` waits once and
+  returns the rounds' outputs to the host.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 from .. import rng
 from .state import RoundState
@@ -122,3 +127,46 @@ class LoopRoundProgram:
                  "pipeline_depth": self.options.pipeline_depth}
         self._pending.clear()
         return stats
+
+
+class GridRoundProgram:
+    """A sweep group's rounds behind the same face.  ``step(state, xs)``
+    runs ``step_fn`` once per round dict of ``xs`` (the engine's
+    precomputed per-round inputs), each round issuing its device work
+    after the last, and keeps the rounds' outputs as (R, G) tensors on
+    the device: nothing is read to the host, so the whole schedule is
+    queued without a wait.  ``finalize`` waits for the device once and
+    returns ``(state, outputs)`` with the outputs as numpy arrays.  The
+    link draws are part of each round's queued work, so
+    ``pipeline_depth`` does not apply; a ``mesh_shape`` is refused (the
+    multi-GPU grid mesh is ROADMAP A13)."""
+
+    def __init__(self, step_fn: Callable, state0,
+                 options: Optional[ProgramOptions] = None):
+        self.options = options or ProgramOptions()
+        if self.options.mesh_shape is not None:
+            raise NotImplementedError(
+                "the (grid, device) mesh of the sweep engine is not "
+                "ported yet (ROADMAP A13)")
+        self._step_fn = step_fn
+        self.state = RoundState.from_mapping(state0)
+        self._out: dict = {}
+
+    def step(self, state, xs):
+        """Queue every round of ``xs`` from ``state``; returns the final
+        state and the stacked outputs, both still on the device."""
+        state = RoundState.from_mapping(state)
+        outs = []
+        for x in xs:
+            state, out = self._step_fn(state, x)
+            outs.append(out)
+        self.state = state
+        self._out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return state, self._out
+
+    def finalize(self):
+        """Wait for the queued rounds; ``(state, {name: (R, G) array})``."""
+        leaf = self.state.converged_round
+        if leaf.device.type == "cuda":
+            torch.cuda.synchronize(leaf.device)
+        return self.state, {k: v.cpu().numpy() for k, v in self._out.items()}

@@ -20,32 +20,37 @@ local SGD and scatters it back after the downlink.
 through a ``core/program.py`` :class:`LoopRoundProgram`, as the service
 (``launch/service.py``) does with churned cohorts.
 
-Not ported yet, and refused by :class:`FederatedConfig`: the sweep grid
-step (A12), the mesh-sharded path (A13) and the transformer classifier
-(A15).
+:func:`make_grid_round_step` is the same round for a sweep group of G
+points stacked (``sweep/engine.py``): G x D device rows through one
+captured local step, per-point values as tensors, and every host
+decision of the loop as a masked tensor operation.
+
+Not ported yet, and refused by :class:`FederatedConfig`: the
+mesh-sharded path (A13) and the transformer classifier (A15).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import warnings
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import rng
 from ..channel import ChannelConfig
-from ..channel.payload import CodecSpec, LinkConfig
+from ..channel.payload import CodecSpec, LinkConfig, parse_codec
 from ..channel.pipeline import (LinkPlan, downlink_gout, downlink_params,
-                                make_uplink_stage)
+                                grid_uplink_stage, make_uplink_stage,
+                                round_trip_traced)
 from ..data.pipeline import TaskSpec, parse_task
 from ..device import resolve_device
 from ..kernels.distill_loss import distill_step
 from ..models.registry import ModelSpec, build_model, parse_model
 from ..registry import (FLD_FAMILY, MODELS, PROTOCOLS,  # noqa: F401
                         canonical_model, canonical_protocol)
-from .conversion import OutputToModel
+from .conversion import OutputToModelSteps
 from .graphs import CapturedSteps
 from .privacy import GaussianAccountant
 from .program import LoopRoundProgram, ProgramOptions
@@ -260,23 +265,38 @@ def make_local_train(apply_stacked, num_classes: int, local_iters: int,
     """Local SGD (eq. 1 / 3) for a device-stacked population.
 
     Returns ``local_train(params, x, y, keys, gout, use_kd, eta, beta,
-    n_loc) -> (params, favg (D, C, C), cnt (D, C), mean loss (D,))`` with
-    ``params`` leaves (D, ...), x (D, n, ...), y (D, n) int64, keys
-    (D, 2), gout (D, C, C).  Device d draws its batches from keys[d]
-    exactly as the reference's vmapped scan does.  ``params`` is not
-    changed; the returned tensors are the caller's own.
+    n_loc, rows=None) -> (params, favg (D, C, C), cnt (D, C), mean loss
+    (D,))`` with ``params`` leaves (D, ...), keys (D, 2), gout (D, C, C).
+    Device d trains on data row ``rows[d]`` of x (n, ...) and y (n,)
+    int64 (default: row d).  ``eta``, ``beta`` and ``n_loc`` are numbers,
+    or tensors of one value or of one per device.  Device d draws its
+    batches from keys[d] exactly as the reference's vmapped scan does.
+    ``params`` is not changed; the returned tensors are the caller's own.
     """
     return LocalTrain(apply_stacked, num_classes, local_iters, local_batch)
 
 
-class LocalTrain:
-    """:func:`make_local_train`'s callable.  Each input layout (and eta)
-    gets static buffers and a :class:`~repro_torch.core.graphs.StepGraph`
-    of one step (``core/graphs.py`` :class:`CapturedSteps`), built at
-    first use and kept: on the GPU the K steps are graph replays, on the
-    CPU the same step runs eagerly.
+def _per_row(v, n: int, device, dtype=torch.float32):
+    """``v`` (a number, or a tensor of 1 or n values) as an (n,) tensor
+    on ``device``.  A number is filled in on the device: no host copy."""
+    if torch.is_tensor(v):
+        return v.to(device, dtype).reshape(-1).expand(n).contiguous()
+    return torch.full((n,), v, dtype=dtype, device=device)
 
-    One step: gather the batch by the step's indices, ``apply_stacked``,
+
+class LocalTrain:
+    """:func:`make_local_train`'s callable, for a loop round (D devices)
+    and a sweep grid's group (G configs x D devices, stacked) alike.
+    Each input layout gets static buffers and a
+    :class:`~repro_torch.core.graphs.StepGraph` of one step
+    (``core/graphs.py`` :class:`CapturedSteps`), built at first use and
+    kept: on the GPU the K steps are graph replays, on the CPU the same
+    step runs eagerly.  eta, beta (zero while KD is off) and the data
+    rows are per-device inputs of the step, so one capture serves every
+    value of them.
+
+    One step: gather the batch by the step's indices from each device's
+    data row, ``apply_stacked``,
     :func:`~repro_torch.kernels.distill_loss.distill_step` (the loss,
     its gradient dz in the logits and the eq. (2) sums, every device's
     rows in one kernel launch), ``autograd.grad`` of ``sum(logits dz)``
@@ -294,47 +314,49 @@ class LocalTrain:
     def graphs(self):
         return self.steps.graphs
 
-    def _make_step(self, eta):
+    def _make_step(self, buf):
         apply_stacked, B = self.apply_stacked, self.B
+        inp, out, k = buf.inputs, buf.outputs, buf.k
+        D = inp["idx"].shape[0]
+        rows = inp["rows"][:, None]
+        eta = [inp["eta"].view((-1,) + (1,) * (t.dim() - 1))
+               for t in buf.leaves]
 
-        def make(buf):
-            inp, out, k = buf.inputs, buf.outputs, buf.k
-            D = inp["x"].shape[0]
-            rows = torch.arange(D, device=k.device)[:, None]
+        def step():
+            ik = inp["idx"].index_select(1, k).view(D, B)
+            xb, yb = inp["x"][rows, ik], inp["y"][rows, ik]
+            logits = apply_stacked(buf.params, xb)           # (D, B, C)
+            dz = distill_step(logits.detach(), yb, inp["gout"],
+                              inp["beta"], k, out["losses"],
+                              out["out_sum"], out["cnt"])
+            # devices are independent: dz is each device's own gradient.
+            # sum(logits * dz) is a scalar root whose gradient in the
+            # logits is dz exactly; autograd.grad(logits,
+            # grad_outputs=dz) would import PyTorch's symbolic-shape
+            # module (sympy) at its first call, seconds of host time
+            grads = torch.autograd.grad((logits * dz).sum(), buf.leaves)
+            with torch.no_grad():
+                torch._foreach_sub_(buf.leaves,
+                                    torch._foreach_mul(grads, eta))
+                k.add_(1)
 
-            def step():
-                ik = inp["idx"].index_select(1, k).view(D, B)
-                xb, yb = inp["x"][rows, ik], inp["y"][rows, ik]
-                logits = apply_stacked(buf.params, xb)       # (D, B, C)
-                dz = distill_step(logits.detach(), yb, inp["gout"],
-                                  inp["beta"], k, out["losses"],
-                                  out["out_sum"], out["cnt"])
-                # devices are independent: dz is each device's own
-                # gradient.  sum(logits * dz) is a scalar root whose
-                # gradient in the logits is dz exactly;
-                # autograd.grad(logits, grad_outputs=dz) would import
-                # PyTorch's symbolic-shape module (sympy) at its first
-                # call, seconds of host time
-                grads = torch.autograd.grad((logits * dz).sum(), buf.leaves)
-                with torch.no_grad():
-                    torch._foreach_sub_(buf.leaves,
-                                        torch._foreach_mul(grads, eta))
-                    k.add_(1)
+        return step
 
-            return step
-
-        return make
-
-    def __call__(self, params, x, y, keys, gout, use_kd, eta, beta, n_loc):
+    def __call__(self, params, x, y, keys, gout, use_kd, eta, beta, n_loc,
+                 rows=None):
         C, K, B = self.C, self.K, self.B
-        D = x.shape[0]
+        D, dev = keys.shape[0], x.device
+        if rows is None:
+            rows = torch.arange(D, device=dev)
+        beta = _per_row(beta, D, dev)
+        if not use_kd:
+            beta = torch.zeros_like(beta)
         idx = rng.randint(rng.split(keys, K), (B,), 0, n_loc)  # (D, K, B)
-        b = torch.full((1,), beta if use_kd else 0.0, device=x.device)
         new, out = self.steps(
-            self._make_step(eta), params,
-            dict(x=x, y=y, idx=idx, gout=gout, beta=b),
-            dict(out_sum=(D, C, C), cnt=(D, C), losses=(D, K)), K,
-            key=(eta,))
+            self._make_step, params,
+            dict(x=x, y=y, rows=rows, idx=idx, gout=gout,
+                 eta=_per_row(eta, D, dev), beta=beta),
+            dict(out_sum=(D, C, C), cnt=(D, C), losses=(D, K)), K)
         cnt = out["cnt"]
         favg = out["out_sum"] / cnt[:, :, None].clamp_min(1.0)
         return new, favg, cnt, out["losses"].mean(1)
@@ -407,7 +429,13 @@ class FederatedTrainer:
                                   fc.num_classes, fc.local_iters,
                                   fc.local_batch))
                 for arch, idx in self._arch_groups]
-        self.output_to_model = OutputToModel(model.apply)
+        # the server model converts as a group of one (G = 1)
+        self.output_to_model = OutputToModelSteps(model.apply)
+        self._conv_consts = dict(
+            iters=torch.full((1,), fc.server_iters, dtype=torch.int64,
+                             device=self.device),
+            eta=torch.full((1,), fc.eta, device=self.device),
+            beta=torch.full((1,), fc.beta, device=self.device))
         self._codec = fc.codec_spec()
         self._uplink_stage = make_uplink_stage(self._codec, fc.protocol)
         self._plan_cache = {}
@@ -509,6 +537,19 @@ class FederatedTrainer:
                 dev_gout[idx], use_kd, fc.eta, fc.beta, n_local)
         return new, favg, cnt, mloss
 
+    def _convert(self, g_params, seeds, gout, key):
+        """eq. (5): the K_s conversion steps of the server model, run as
+        a group of one stacked model."""
+        fc, c = self.fc, self._conv_consts
+        new, _ = self.output_to_model(
+            {k: {n: t[None] for n, t in v.items()}
+             for k, v in g_params.items()},
+            seeds["train_x"][None], seeds["train_y"][None], gout[None],
+            rng.split(key, fc.server_iters)[None], c["iters"],
+            seeds["train_x"].shape[0], fc.server_batch, c["eta"],
+            c["beta"])
+        return {k: {n: t[0] for n, t in v.items()} for k, v in new.items()}
+
     def round_once(self, state: RoundState, dev_x, dev_y, test_x, test_y,
                    *, plan: Optional[LinkPlan] = None, log=None,
                    _pending_link=None):
@@ -578,10 +619,8 @@ class FederatedTrainer:
             if up_ok.any():
                 gout = gout_update(favg_rx, cnt, ok.to(torch.float32))
             if proto != "fd":
-                g_params, _ = self.output_to_model(
-                    g_params, seeds["train_x"],
-                    seeds["train_y"], gout, fc.server_iters,
-                    fc.server_batch, fc.eta, fc.beta, rng.fold_in(kr, 4))
+                g_params = self._convert(g_params, seeds, gout,
+                                         rng.fold_in(kr, 4))
 
         # ---- downlink (gated per device by dn_ok) ----
         mask = torch.as_tensor(dn_ok, device=self.device)
@@ -715,3 +754,302 @@ class FederatedTrainer:
         history["final_acc"] = history["acc"][-1]
         self.last_dev_gout = state.dev_gout
         return history
+
+
+# ---------------------------------------------------------------------------
+# The sweep grid's round step: a group of G points, stacked
+# ---------------------------------------------------------------------------
+
+def _rows_of(tree):
+    """Leaves (G, n, ...) -> (G n, ...) views."""
+    return {k: {m: t.reshape((-1,) + tuple(t.shape[2:]))
+                for m, t in v.items()} for k, v in tree.items()}
+
+
+def _points_of(tree, n: int):
+    """Leaves (G n, ...) -> (G, n, ...) views."""
+    return {k: {m: t.reshape((-1, n) + tuple(t.shape[1:]))
+                for m, t in v.items()} for k, v in tree.items()}
+
+
+def _take(tree, g, idx):
+    """Leaves (G, D, ...) gathered at (G, n) device indices."""
+    return {k: {m: t[g, idx] for m, t in v.items()}
+            for k, v in tree.items()}
+
+
+def _put(pool, g, idx, tree):
+    """``pool`` leaves (G, D, ...) with the (G, n) rows ``idx`` replaced by
+    ``tree``'s, as new tensors."""
+    out = {}
+    for k, v in tree.items():
+        out[k] = {}
+        for m, t in v.items():
+            leaf = pool[k][m].clone()
+            leaf[g, idx] = t
+            out[k][m] = leaf
+    return out
+
+
+def _where_points(mask, new, old):
+    """Per point (G,) ``new`` where ``mask`` else ``old``, leaf by leaf."""
+    return {k: {m: torch.where(mask.reshape((-1,) + (1,) * (t.dim() - 1)),
+                               t, old[k][m]) for m, t in v.items()}
+            for k, v in new.items()}
+
+
+class ArchTrain(NamedTuple):
+    """One architecture group of a sweep group's cohort: its name (None
+    for a homogeneous cohort), its device indices (None: all), its
+    :class:`LocalTrain`, its model, and eta, beta and n_local per device
+    row of the group."""
+    arch: Optional[str]
+    idx: Optional[torch.Tensor]
+    train: LocalTrain
+    model: object
+    rows: dict
+
+
+class GridRoundStep:
+    """:func:`make_grid_round_step`'s callable: ``step(state, xs) ->
+    (state, out)`` for one round of a sweep group.
+
+    ``local_trains`` holds an :class:`ArchTrain` (one, or one per
+    architecture group of a mixed cohort) and ``conversion`` the
+    :class:`OutputToModelSteps` of the FLD family (else None): each
+    keeps one captured step for the group."""
+
+    def __init__(self, model, *, protocol: str, num_devices: int,
+                 num_classes: int, local_iters: int, local_batch: int,
+                 server_batch: int, t_max_slots: int, tau_s: float,
+                 dev_x, dev_y, data_rows, test_x, test_y, consts: dict,
+                 codec="identity", cohort_size: Optional[int] = None,
+                 arch_groups: Optional[list] = None):
+        proto = canonical_protocol(protocol)
+        D, C = num_devices, num_classes
+        Dc = D if cohort_size is None else min(int(cohort_size), D)
+        self.sampled = Dc < D
+        if arch_groups is not None:
+            if self.sampled:
+                raise ValueError("mixed-architecture grid programs require "
+                                 "full participation")
+            if proto == "fl":
+                raise ValueError("protocol 'fl' cannot mix architectures")
+        self.proto, self.Dc, self.C = proto, Dc, C
+        self.server_batch = server_batch
+        self.t_max_slots, self.tau_s = t_max_slots, tau_s
+        self.dev_x, self.dev_y, self.data_rows = dev_x, dev_y, data_rows
+        self.test_x, self.test_y = test_x, test_y
+        self.consts = consts
+        self.spec = parse_codec(codec)
+        G = consts["key"].shape[0]
+        dev = consts["key"].device
+        self.G, self.points = G, torch.arange(G, device=dev)[:, None]
+
+        def per_row(name, n):
+            return consts[name][:, None].expand(G, n).reshape(-1)
+
+        groups = (arch_groups if arch_groups is not None
+                  else [(None, None, model)])
+        self.local_trains = []
+        for arch, idx, m in groups:
+            n = Dc if idx is None else len(idx)
+            ji = None if idx is None else torch.as_tensor(
+                np.asarray(idx), dtype=torch.int64, device=dev)
+            lt = make_local_train(m.apply_stacked, C, local_iters,
+                                  local_batch)
+            self.local_trains.append(ArchTrain(
+                arch, ji, lt, m,
+                {k: per_row(k, n) for k in ("eta", "beta", "n_local")}))
+        self.codec_rows = (None if self.spec.name == "identity" else
+                           {k: per_row(k, Dc)
+                            for k in ("levels", "noise", "clip")})
+        self.conversion = (OutputToModelSteps(model.apply)
+                           if proto in FLD_FAMILY else None)
+        self.mixed = arch_groups is not None
+        self.ref_model = groups[0][2]
+
+    def _train(self, dev_params, dev_gout, rows, dkeys, use_kd):
+        """Local SGD of every point's cohort: (params, favg, cnt, mloss)
+        in the (G, n, ...) layout."""
+        G, Dc, C = self.G, self.Dc, self.C
+        if not self.mixed:
+            at = self.local_trains[0]
+            new, favg, cnt, mloss = at.train(
+                _rows_of(dev_params), self.dev_x, self.dev_y,
+                dkeys.reshape(-1, 2), dev_gout.reshape(-1, C, C), use_kd,
+                at.rows["eta"], at.rows["beta"], at.rows["n_local"],
+                rows=rows.reshape(-1))
+            return (_points_of(new, Dc), favg.view(G, Dc, C, C),
+                    cnt.view(G, Dc, C), mloss.view(G, Dc))
+        dev = dev_gout.device
+        favg = torch.zeros(G, Dc, C, C, device=dev)
+        cnt = torch.zeros(G, Dc, C, device=dev)
+        mloss = torch.zeros(G, Dc, device=dev)
+        new = {}
+        for arch, ji, lt, _, r in self.local_trains:
+            n = ji.shape[0]
+            p_a, f_a, c_a, l_a = lt(
+                _rows_of(dev_params[arch]), self.dev_x, self.dev_y,
+                dkeys[:, ji].reshape(-1, 2),
+                dev_gout[:, ji].reshape(-1, C, C), use_kd, r["eta"],
+                r["beta"], r["n_local"], rows=rows[:, ji].reshape(-1))
+            new[arch] = _points_of(p_a, n)
+            favg.index_copy_(1, ji, f_a.view(G, n, C, C))
+            cnt.index_copy_(1, ji, c_a.view(G, n, C))
+            mloss.index_copy_(1, ji, l_a.view(G, n))
+        return new, favg, cnt, mloss
+
+    def __call__(self, state: RoundState, xs: dict):
+        proto, consts, G, Dc, C = (self.proto, self.consts, self.G,
+                                   self.Dc, self.C)
+        p = xs["p"]
+        kr = rng.fold_in(consts["key"], p)                   # (G, 2)
+        use_kd = proto != "fl" and p > 1
+
+        # ---- client sampling: gather each point's cohort off the pool
+        pool_params, pool_gout = state.dev_params, state.dev_gout
+        rows = self.data_rows                                # (G, D)
+        if self.sampled:
+            chrt = xs["cohort"]                              # (G, Dc)
+            dev_params = _take(pool_params, self.points, chrt)
+            dev_gout = pool_gout[self.points, chrt]
+            rows = rows[self.points, chrt]
+        else:
+            dev_params, dev_gout = pool_params, pool_gout
+
+        # ---- local updates (eq. 1 / 3): one captured step a group ----
+        dkeys = rng.split(rng.fold_in(kr, 1), Dc)            # (G, Dc, 2)
+        dev_params, favg, cnt, mloss = self._train(dev_params, dev_gout,
+                                                   rows, dkeys, use_kd)
+
+        # ---- channel: every point's draw at once ----
+        link = round_trip_traced(rng.fold_in(kr, 3), consts["p_up"],
+                                 xs["up_slots"], consts["p_dn"],
+                                 xs["dn_slots"], Dc, self.t_max_slots,
+                                 self.tau_s)
+        up_ok, dn_ok = link["up_ok"], link["dn_ok"]          # (G, Dc)
+        any_up = up_ok.any(1)
+        okf = up_ok.to(torch.float32)
+
+        # ---- uplink codec (identity skips the stage) ----
+        dev_params_rx, favg_rx = dev_params, favg
+        if self.codec_rows is not None:
+            p_rx, f_rx = grid_uplink_stage(
+                self.spec, proto,
+                _rows_of(dev_params) if proto == "fl" else None,
+                favg.reshape(-1, C, C), rng.fold_in(kr, 5),
+                dev_gout.reshape(-1, C, C), state.g_params,
+                self.codec_rows)
+            if proto == "fl":
+                dev_params_rx = _points_of(p_rx, Dc)
+            favg_rx = f_rx.view(G, Dc, C, C)
+
+        # ---- aggregation + (FLD) conversion, gated per point ----
+        g_params, gout = state.g_params, state.gout
+        if proto == "fl":
+            w = okf * consts["n_local"].to(torch.float32)[:, None]
+            wsum = w.sum(1).clamp_min(1e-9)
+            new_g = {k: {m: (torch.bmm(w[:, None], t.reshape(G, Dc, -1))
+                             .reshape((G,) + tuple(t.shape[2:]))
+                             / wsum.reshape((-1,) + (1,) * (t.dim() - 2)))
+                         for m, t in v.items()}
+                     for k, v in dev_params_rx.items()}
+            g_params = _where_points(any_up, new_g, g_params)
+        else:
+            cw = okf[..., None] * cnt                        # (G, Dc, C)
+            num = torch.einsum("gdc,gdcm->gcm", cw, favg_rx)
+            new_gout = num / cw.sum(1)[..., None].clamp_min(1.0)
+            gout = torch.where(any_up[:, None, None], new_gout, gout)
+            if proto != "fd":
+                g_params, _ = self.conversion(
+                    g_params, consts["seeds_x"], consts["seeds_y"], gout,
+                    xs["conv_keys"], consts["s_iters"], consts["n_train"],
+                    self.server_batch, consts["eta"], consts["beta"])
+
+        # ---- downlink (gated per device by dn_ok) ----
+        dev_gout = downlink_gout(dev_gout, gout, dn_ok)
+        if proto != "fd":
+            if not self.mixed:
+                dev_params = downlink_params(dev_params, g_params, dn_ok)
+            else:
+                # the converted model is the server architecture's: only
+                # its group (the first) receives it
+                a0, i0 = self.local_trains[0].arch, self.local_trains[0].idx
+                dev_params = dict(dev_params)
+                dev_params[a0] = downlink_params(dev_params[a0], g_params,
+                                                 dn_ok[:, i0])
+
+        # ---- scatter the trained cohorts back into the pools ----
+        if self.sampled:
+            dev_params = _put(pool_params, self.points, chrt, dev_params)
+            cohort_gout, dev_gout = dev_gout, pool_gout.clone()
+            dev_gout[self.points, chrt] = cohort_gout
+
+        # ---- evaluation of each point's reference device: device 0, or
+        # the cohort's first under sampling ----
+        if self.sampled:
+            ref = {k: {m: t[self.points[:, 0], chrt[:, 0]]
+                       for m, t in v.items()} for k, v in dev_params.items()}
+        elif self.mixed:
+            ref = {k: {m: t[:, 0] for m, t in v.items()}
+                   for k, v in dev_params[self.local_trains[0].arch].items()}
+        else:
+            ref = {k: {m: t[:, 0] for m, t in v.items()}
+                   for k, v in dev_params.items()}
+        with torch.no_grad():   # each point's model alone, as its loop's
+            logits = torch.stack([self.ref_model.apply(
+                {k: {m: t[g] for m, t in v.items()} for k, v in ref.items()},
+                self.test_x) for g in range(G)])
+        acc = (logits.argmax(-1) == self.test_y).to(torch.float32).mean(1)
+
+        # ---- convergence: the first round with rel < eps, some uplink
+        # decoded and the round past the first ----
+        if proto == "fd":
+            flat = gout.reshape(G, -1)
+        else:
+            flat = torch.cat([t.reshape(G, -1) for v in g_params.values()
+                              for t in v.values()], 1)
+        converged = state.converged_round
+        if p >= 2:
+            rel = (torch.linalg.vector_norm(flat - state.prev, dim=1)
+                   / torch.linalg.vector_norm(state.prev, dim=1)
+                   .clamp_min(1e-12))
+            hit = (rel.to(torch.float64) < consts["eps"]) & any_up & \
+                (converged == 0)
+            converged = torch.where(hit, p, converged)
+
+        out = {"acc": acc, "loss": mloss.mean(1),
+               "latency_s": link["latency_s"],
+               "up_ok": up_ok.sum(1)}
+        return state.replace(dev_params=dev_params, g_params=g_params,
+                             gout=gout, dev_gout=dev_gout, prev=flat,
+                             converged_round=converged), out
+
+
+def make_grid_round_step(model, **kw) -> GridRoundStep:
+    """The sweep grid's round step for one program group: G points of
+    one (protocol, codec family, cohort size, model, task), stacked —
+    ``FederatedTrainer.round_once``'s body with every host decision
+    (success gating, convergence) as masked tensor operations, so a
+    round issues its work without reading anything back.
+
+    ``model`` has ``apply_stacked``; with ``arch_groups`` (a mixed
+    cohort: ``[(name, device indices, model), ...]``, device 0's group
+    first, the server's) each architecture group trains its own stack.
+    ``dev_x`` (N, n, ...) and ``dev_y`` (N, n) hold the group's distinct
+    partitions, ``data_rows`` (G, D) point g's device d's row of them.
+    ``consts`` holds tensors with a leading G axis: ``key`` (G, 2) (each
+    point's run key, the second output of ``split(PRNGKey(seed))``),
+    ``eta``, ``beta``, ``p_up``, ``p_dn`` float32, ``eps`` float64,
+    ``n_local``, ``s_iters``, ``n_train`` int64, the padded seed sets
+    ``seeds_x``/``seeds_y``, and for a codec other than identity its
+    ``levels``, ``noise`` and ``clip``.  A round's ``xs``: ``p`` (int),
+    ``up_slots``/``dn_slots`` (G,), ``conv_keys`` (G, K_max, 2) and,
+    sampled, ``cohort`` (G, Dc).
+
+    State: a :class:`RoundState` with ``dev_params`` leaves (G, D, ...)
+    (per architecture in a mixed cohort), ``g_params`` (G, ...), ``gout``
+    (G, C, C), ``dev_gout`` (G, D, C, C), ``prev`` (G, P) and
+    ``converged_round`` (G,) int64, 0 for not yet."""
+    return GridRoundStep(model, **kw)

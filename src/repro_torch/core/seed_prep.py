@@ -1,14 +1,24 @@
-"""Round-1 seed collection (Algorithm 1's seed exchange) and its summary.
+"""Round-1 seed collection (Algorithm 1's seed exchange), its summary,
+and the content-keyed memo the sweep engine preps through.
 
 ``collect_seeds`` draws the device-side Mixup pairs, mixes them through
 the mixup kernel, pairs symmetric uploads server-side
 (``pair_symmetric``), inverts the pairs through the mixup kernel, and
-augments with inverse-Mixup over longer label cycles.  The reference's
-content-keyed memo (``SeedPrepMemo`` / ``prepare_seeds``) waits for the
-sweep engine.
+augments with inverse-Mixup over longer label cycles.
+
+A sweep grid's points often share their seed sets (an eta or channel
+axis changes none of them), so :func:`prepare_seeds` goes through a
+:class:`SeedPrepMemo` keyed by content, as the reference's does: the
+:data:`SEED_FIELDS` of the config, a fingerprint of the partition's
+bytes and the key's bytes (:func:`seed_prep_key`).  Points whose keys
+coincide share one prep run and one result object.  On the GPU the
+fingerprint copies each distinct partition to the host once, when the
+sweep is built.  :data:`prep_stats` counts the prep runs.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 from typing import Optional
 
 import numpy as np
@@ -18,6 +28,97 @@ from .. import rng
 from ..kernels.mixup_kernel import mixup
 from .mixup import (_gather_rows, find_label_cycles, inverse_mixup_cycles,
                     make_mixup_batch_kernel, mixup_pairs, pair_symmetric)
+
+
+#: Config fields that determine the round-1 seed sets (the reference's):
+#: everything else (step sizes, conversion budgets, channel fields)
+#: leaves the prep untouched.
+SEED_FIELDS = ("protocol", "lam", "n_seed", "n_inverse", "seed",
+               "num_devices", "num_classes", "task",
+               "sample_ratio", "sample_seed", "sample_min_active")
+
+
+@dataclasses.dataclass
+class PrepStats:
+    """Count of seed-prep runs (:func:`collect_seeds` calls of the FLD
+    family)."""
+    runs: int = 0
+
+    def reset(self):
+        self.runs = 0
+
+
+prep_stats = PrepStats()
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def partition_fingerprint(dev_x, dev_y) -> str:
+    """Content digest of a device partition (shape, dtype and bytes of
+    both arrays)."""
+    h = hashlib.sha1()
+    for a in (dev_x, dev_y):
+        a = _host(a)
+        h.update(str((a.shape, str(a.dtype))).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def seed_fields_key(fc) -> tuple:
+    """The :data:`SEED_FIELDS` of one config: the config half of the memo
+    key, and the grouping key of ``SweepGrid.seed_key``."""
+    return tuple(getattr(fc, f) for f in SEED_FIELDS)
+
+
+def seed_prep_key(fc, dev_x, dev_y, key,
+                  fingerprint: Optional[str] = None) -> tuple:
+    """Content key of one prep call: seed fields, partition fingerprint
+    (computed unless given) and the key's bytes."""
+    return (seed_fields_key(fc),
+            fingerprint or partition_fingerprint(dev_x, dev_y),
+            _host(key).astype(np.uint32).tobytes())
+
+
+class SeedPrepMemo:
+    """Content-keyed cache of prep results, with ``hits`` and ``misses``.
+    The fingerprint is cached per array pair by identity (the arrays are
+    held, so the ids stay valid): a grid's shared partition is hashed
+    once.  Partitions handed to one memo must not change in place."""
+
+    def __init__(self):
+        self._cache: dict = {}
+        self._fp_cache: dict = {}
+        self.hits = 0
+        self.misses = 0
+
+    def _fingerprint(self, dev_x, dev_y) -> str:
+        fpk = (id(dev_x), id(dev_y))
+        hit = self._fp_cache.get(fpk)
+        if hit is None:
+            hit = self._fp_cache[fpk] = (
+                partition_fingerprint(dev_x, dev_y), dev_x, dev_y)
+        return hit[0]
+
+    def get_or_collect(self, fc, dev_x, dev_y, key):
+        k = seed_prep_key(fc, dev_x, dev_y, key,
+                          fingerprint=self._fingerprint(dev_x, dev_y))
+        if k in self._cache:
+            self.hits += 1
+            return self._cache[k]
+        self.misses += 1
+        out = self._cache[k] = collect_seeds(fc, dev_x, dev_y, key)
+        return out
+
+
+def prepare_seeds(fc, dev_x, dev_y, key,
+                  memo: Optional[SeedPrepMemo] = None):
+    """:func:`collect_seeds` through ``memo``: calls whose seed-determining
+    content coincides return the same result object."""
+    if memo is None:
+        return collect_seeds(fc, dev_x, dev_y, key)
+    return memo.get_or_collect(fc, dev_x, dev_y, key)
 
 
 def summarize_seeds(seeds) -> Optional[dict]:
@@ -61,6 +162,7 @@ def collect_seeds(fc, dev_x, dev_y, key):
         raise ValueError(
             f"Mixup seed collection needs at least 2 local samples per "
             f"device to draw cross-class pairs, got n_local={n_local}")
+    prep_stats.runs += 1
     keys = rng.split(key, D)
 
     if proto == "fld":  # raw samples (privacy leak, the baseline)

@@ -5,8 +5,10 @@ Fields as in the reference (the checkpoint manifest's keys): ``round``,
 ``fold_in(key, round)``), the global and device-stacked parameters, the
 global and per-device G_out tables, the previous flat global state for
 the convergence check, ``converged_round``, the round-1 ``seeds`` and
-the cumulative time.  The grid layout of the sweep engine waits for that
-slice.
+the cumulative time.  In the sweep engine's grid layout
+(``core/protocols.py`` :class:`GridRoundStep`) the tensors carry a
+leading axis of the group's G points and the loop's host fields
+(``round``, ``key``, ``seeds``, ``cum_time_s``) stay None.
 """
 from __future__ import annotations
 

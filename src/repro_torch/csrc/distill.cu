@@ -199,7 +199,10 @@ extern "C" int distill_loss_launch(const void* z, const void* y,
 //
 // with g_r = gout[d, y_r].  beta and the step index k are read from
 // device memory, so one captured CUDA graph of the step serves the
-// KD-off first round and the KD rounds, and its replays walk k.
+// KD-off first round and the KD rounds, and its replays walk k.  Device
+// d reads beta[d * beta_stride]: stride 0 gives every device the one
+// beta of a loop round, stride 1 each device row its own (the sweep
+// grid stacks the devices of G configs with their own betas).
 //
 // One CTA per device, one warp per row (warps stride over the rows when
 // B exceeds them).  The rows' phi, psi, labels and softmax go to shared
@@ -216,7 +219,7 @@ __global__ void distill_step_kernel(const float* __restrict__ z,
                                     float* __restrict__ losses,
                                     float* __restrict__ out_sum,
                                     float* __restrict__ cnt, int b, int c,
-                                    int64_t iters) {
+                                    int64_t iters, int64_t beta_stride) {
   extern __shared__ float smem[];
   float* s_phi = smem;              // (B,)
   float* s_psi = s_phi + b;         // (B,)
@@ -225,7 +228,7 @@ __global__ void distill_step_kernel(const float* __restrict__ z,
   const int d = blockIdx.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x / 32;
-  const float beta = *beta_p;
+  const float beta = beta_p[(int64_t)d * beta_stride];
   const float a = 1.f / (float)b, bb = beta / (float)b;
   for (int i = warp; i < b; i += nwarps) {
     const int64_t row = (int64_t)d * b + i;
@@ -294,7 +297,7 @@ extern "C" int distill_step_launch(const void* z, const void* y,
                                    const void* k, void* dz, void* losses,
                                    void* out_sum, void* cnt, int64_t d,
                                    int64_t b, int64_t c, int64_t iters,
-                                   void* stream) {
+                                   int64_t beta_stride, void* stream) {
   if (d <= 0 || b <= 0) return 0;
   const int warps = b < 4 ? 4 : (b > 16 ? 16 : (int)b);
   distill_step_kernel<<<(unsigned)d, warps * 32,
@@ -302,6 +305,6 @@ extern "C" int distill_step_launch(const void* z, const void* y,
                         (cudaStream_t)stream>>>(
       (const float*)z, (const int64_t*)y, (const float*)gout,
       (const float*)beta, (const int64_t*)k, (float*)dz, (float*)losses,
-      (float*)out_sum, (float*)cnt, (int)b, (int)c, iters);
+      (float*)out_sum, (float*)cnt, (int)b, (int)c, iters, beta_stride);
   return (int)cudaGetLastError();
 }

@@ -23,8 +23,8 @@ devices with B rows each: the forward, the backward for the cotangents
 the step always passes (dphi = 1/B, dpsi = beta/B), the per-device loss
 and the step's eq. (2) sums, in one launch of the fourth kernel of
 ``csrc/distill.cu`` on the GPU; :func:`distill_step_plain` on the CPU.
-beta and the step index are device scalars, so a captured CUDA graph of
-the step reads them at each replay.
+beta (one value, or one per device) and the step index live in device
+memory, so a captured CUDA graph of the step reads them at each replay.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ LOSS = CudaKernel("distill_loss", "distill.cu", "distill_loss_launch",
                   [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
                   + [ctypes.c_float])
 STEP = CudaKernel("distill_step", "distill.cu", "distill_step_launch",
-                  [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 4)
+                  [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 5)
 #: shared memory one distill_step CTA may take (B (C + 3) words)
 STEP_SMEM_BYTES = 48 * 1024
 
@@ -186,10 +186,11 @@ def distill_step_plain(z, y, gout, beta, k, losses, out_sum, cnt):
     zf, yf = z.reshape(D * B, C), y.reshape(D * B)
     gf = gout[dev, y].reshape(D * B, C)
     phi, psi = phi_psi_plain(zf, yf, gf)
-    beta = beta.reshape(())
+    beta = beta.reshape(-1).expand(D)        # one beta, or one a device
     loss = phi.view(D, B).mean(1) + beta * psi.view(D, B).mean(1)
     ones = torch.ones(D * B, dtype=z.dtype, device=z.device)
-    dz, _ = phi_psi_bwd_plain(zf, yf, gf, ones / B, beta * ones / B)
+    dpsi = (beta[:, None] * ones.view(D, B)).reshape(-1)
+    dz, _ = phi_psi_bwd_plain(zf, yf, gf, ones / B, dpsi / B)
     losses.index_copy_(1, k.reshape(1), loss[:, None])
     oh = torch.nn.functional.one_hot(y, C).to(torch.float32)
     out_sum += oh.transpose(1, 2) @ torch.softmax(z, -1)
@@ -200,7 +201,8 @@ def distill_step_plain(z, y, gout, beta, k, losses, out_sum, cnt):
 def distill_step(z, y, gout, beta, k, losses, out_sum, cnt):
     """One local step's distill work for D devices of B rows: z (D, B, C)
     float32 logits, y (D, B) int64 labels in [0, C), gout (D, C, C) each
-    device's G_out, beta a one-element float32 tensor, k a one-element
+    device's G_out, beta a float32 tensor of one element (every device's)
+    or of D (device d's is ``beta[d]``), k a one-element
     int64 tensor (the step index).  Returns dz (D, B, C), the gradient of
     sum_d [mean_B phi + beta mean_B psi] in z; writes the per-device loss
     into ``losses[:, k]`` (losses (D, K)) and adds the step's
@@ -217,9 +219,9 @@ def distill_step(z, y, gout, beta, k, losses, out_sum, cnt):
             "distill_step takes (D, B) int64 labels and an int64 step")
     require(gout.shape == (D, C, C) and out_sum.shape == (D, C, C)
             and cnt.shape == (D, C) and losses.dim() == 2
-            and losses.shape[0] == D and beta.numel() == 1,
+            and losses.shape[0] == D and beta.numel() in (1, D),
             "distill_step: gout and out_sum (D, C, C), cnt (D, C), losses "
-            "(D, K), beta one element")
+            "(D, K), beta one element or D")
     require(all(t.dtype == torch.float32
                 for t in (z, gout, beta, losses, out_sum, cnt)),
             "distill_step takes float32 logits, tables and sums")
@@ -233,5 +235,5 @@ def distill_step(z, y, gout, beta, k, losses, out_sum, cnt):
         STEP.launch(z.device, z.data_ptr(), y.data_ptr(), gout.data_ptr(),
                     beta.data_ptr(), k.data_ptr(), dz.data_ptr(),
                     losses.data_ptr(), out_sum.data_ptr(), cnt.data_ptr(),
-                    D, B, C, losses.shape[1])
+                    D, B, C, losses.shape[1], 0 if beta.numel() == 1 else 1)
     return dz

@@ -99,14 +99,34 @@ def random_bits(key, shape, offset: int = 0):
     return b1 ^ b2
 
 
-def randint(key, shape, minval: int, maxval: int):
-    """``jax.random.randint`` (int32 range): (..., 2) -> (..., *shape)."""
+def check_span(minval: int, maxval: int) -> None:
+    """Refuses a :func:`randint` bound that spans 2**31 or more.
+    :func:`randint` checks an int bound itself; a tensor bound is not
+    read back from the card, so whoever builds it checks its largest
+    value on the host with this."""
+    if maxval - minval >= 2 ** 31:
+        raise NotImplementedError("randint spans of 2**31 or more")
+
+
+def randint(key, shape, minval: int, maxval):
+    """``jax.random.randint`` (int32 range): (..., 2) -> (..., *shape).
+
+    ``maxval`` is an int, or an integer tensor of per-row bounds over the
+    leading batch dims of ``key`` (shape ``key.shape[:k]``, aligned from
+    the left): jax's randint with a traced ``maxval``, as the sweep grid
+    draws each point's batches under its own ``n_local`` or ``n_train``.
+    A row's draws equal the int path's at the same bound.  A tensor
+    bound is checked by its builder (:func:`check_span`)."""
     k = split(key, 2)
     hi = random_bits(k[..., 0, :], shape)
     lo = random_bits(k[..., 1, :], shape)
-    span = maxval - minval if maxval > minval else 1
-    if span >= 2 ** 31:
-        raise NotImplementedError("randint spans of 2**31 or more")
+    if torch.is_tensor(maxval):
+        m = maxval.to(device=hi.device, dtype=torch.int64)
+        m = m.reshape(m.shape + (1,) * (hi.dim() - m.dim()))
+        span = torch.where(m > minval, m - minval, 1)
+    else:
+        check_span(minval, maxval)
+        span = maxval - minval if maxval > minval else 1
     # jax computes in uint32: both products and the sum wrap at 2**32
     # (for spans above 2**16 the multiplier wraps to 0)
     mult = ((2 ** 16 % span) ** 2 & MASK) % span
@@ -132,9 +152,14 @@ def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
     return torch.clamp_min(f * span + lo, lo)
 
 
-def bernoulli(key, p: float, shape):
-    """``jax.random.bernoulli`` (mode "low"): uniform < float32(p)."""
-    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+def bernoulli(key, p, shape):
+    """``jax.random.bernoulli`` (mode "low"): uniform < float32(p).  ``p``
+    is a float, or a float32 tensor of per-row probabilities over the
+    leading batch dims of ``key`` (aligned from the left)."""
+    u = uniform(key, shape)
+    if torch.is_tensor(p):
+        return u < p.reshape(p.shape + (1,) * (u.dim() - p.dim()))
+    return u < torch.tensor(p, dtype=torch.float32)
 
 
 _TINY = torch.finfo(torch.float32).tiny

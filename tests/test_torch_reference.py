@@ -2,9 +2,10 @@
 
 ``load_reference()`` imports the JAX package's round loop, models and
 their registry, data, sampling, codecs and privacy, LM stack (dense and
-Mamba2), serve driver, kernels, round program, checkpoint and service
-for the ``tests/test_torch_*.py`` files.  Under the installed jax
-``repro.models.transformer`` cannot be imported: its guard runs
+Mamba2), serve driver, kernels, round program, checkpoint, service and
+sweep engine for the ``tests/test_torch_*.py`` files.  Under the
+installed jax ``repro.models.transformer`` cannot be imported: its guard
+runs
 ``_obar_p not in _batching.primitive_batchers`` and jax 0.9's
 ``PrimitiveBatchersProxy`` has no ``__contains__`` (ROADMAP C1).  The
 loader gives the proxy a ``__contains__`` (membership in
@@ -67,6 +68,10 @@ _MODULES = {
     "program": "repro.core.program",
     "checkpoint": "repro.checkpoint",
     "service": "repro.launch.service",
+    "sweep": "repro.sweep",
+    "sweep_axes": "repro.sweep.axes",
+    "sweep_engine": "repro.sweep.engine",
+    "sweep_results": "repro.sweep.results",
 }
 
 

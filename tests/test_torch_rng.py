@@ -64,6 +64,39 @@ def test_batched_keys_match_vmap():
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
+@pytest.mark.parametrize("bounds", [(300, 60, 100, 1), (5, 5, 0, 7),
+                                    (151936, 70003, 48, 2 ** 16 + 1)])
+def test_randint_tensor_bound_bit_exact(bounds):
+    """Per-row bounds (the sweep grid's n_local and n_train): jax's
+    randint with a traced maxval (jit, the bound an argument, vmapped
+    over the rows), and the int path's draws at each row's bound."""
+    kj, kt = _k(11)
+    n = len(bounds)
+    draw = jax.jit(jax.vmap(lambda k, m: jax.vmap(
+        lambda s: jax.random.randint(s, (16,), 0, m))(
+            jax.random.split(k, 8))))
+    want = draw(jax.random.split(kj, n), jnp.asarray(bounds, jnp.int32))
+    keys = rng.split(rng.split(kt, n), 8)                  # (n, 8, 2)
+    got = rng.randint(keys, (16,), 0, torch.tensor(bounds))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    for i, m in enumerate(bounds):
+        assert torch.equal(got[i], rng.randint(keys[i], (16,), 0, m))
+
+
+def test_bernoulli_tensor_probability_bit_exact():
+    """Per-row probabilities (a sweep group's link budgets) draw what
+    each row's float draws."""
+    kj, kt = _k(4)
+    p = (0.2, 0.93, 0.5)
+    keys = rng.split(kt, 3)
+    got = rng.bernoulli(keys, torch.tensor(p, dtype=torch.float32), (4, 9))
+    want = jax.vmap(lambda k, q: jax.random.bernoulli(k, q, (4, 9)))(
+        jax.random.split(kj, 3), jnp.asarray(p, jnp.float32))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    for i, q in enumerate(p):
+        assert torch.equal(got[i], rng.bernoulli(keys[i], q, (4, 9)))
+
+
 def test_uniform_and_bernoulli_exact():
     kj, kt = _k(11)
     np.testing.assert_array_equal(np.asarray(jax.random.uniform(kj, (4096,))),
@@ -115,3 +148,16 @@ def test_rng_follows_the_key_device():
     kt = rng.PRNGKey(1, device="cpu")
     assert rng.uniform(kt, (3,)).device == torch.device("cpu")
     assert rng.randint(rng.split(kt, 2), (3,), 0, 9).shape == (2, 3)
+
+
+def test_randint_refuses_spans_of_2_31_on_the_host():
+    """An int bound is checked by randint; a tensor bound by its builder
+    with check_span, on the host, so the CPU and the card refuse the
+    same bounds."""
+    key = rng.PRNGKey(0)
+    with pytest.raises(NotImplementedError, match="2\\*\\*31"):
+        rng.randint(key, (2,), 0, 2 ** 31)
+    with pytest.raises(NotImplementedError, match="2\\*\\*31"):
+        rng.check_span(-1, 2 ** 31 - 1)
+    rng.check_span(0, 2 ** 31 - 1)
+    assert rng.randint(key, (2,), 0, 2 ** 31 - 1).shape == (2,)

@@ -94,8 +94,8 @@ def child(src: str, rounds: int) -> None:
     fc = FederatedConfig(protocol="mix2fld", max_rounds=rounds)
     tr = FederatedTrainer(CNN(), fc, ChannelConfig(num_devices=10),
                           device=dev)
-    # the conversion: the trainer's OutputToModel where it has one, else
-    # the module function the round calls
+    # the conversion: the trainer's converter where it has one, else the
+    # module function the round calls
     owner = tr if hasattr(tr, "output_to_model") else protocols
     convert = owner.output_to_model
     conv_s = []
@@ -131,8 +131,13 @@ def child(src: str, rounds: int) -> None:
     args = (state.g_params, state.seeds["train_x"], state.seeds["train_y"],
             state.gout, fc.server_iters, fc.server_batch, fc.eta, fc.beta,
             rng.PRNGKey(10, dev))
-    conv_call = ((lambda: convert(*args)) if owner is tr else
-                 (lambda: convert(tr.model.apply, *args)))
+    if hasattr(tr, "_convert"):    # one server model as a group of one
+        conv_call = (lambda: tr._convert(state.g_params, state.seeds,
+                                         state.gout, rng.PRNGKey(10, dev)))
+    elif owner is tr:
+        conv_call = lambda: convert(*args)                   # noqa: E731
+    else:
+        conv_call = lambda: convert(tr.model.apply, *args)   # noqa: E731
     _, _, cbusy, cops, ckern, _ = traced(conv_call)
     steady = slice(1, None)
     print(json.dumps({
