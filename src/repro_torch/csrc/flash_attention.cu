@@ -50,6 +50,14 @@
 //     rounds to bf16 into shared memory in TMA's swizzled layout and
 //     writes each warpgroup's rows with one bulk tensor store (rows past
 //     S are dropped).
+//   - head dim 80 (zamba2-2.7b, whose prefill calls this at (BH 128,
+//     S 1024, d 80): 84 MB, 0.025 ms at 3.35 TB/s, bytes-bound) runs in
+//     the 128-column tile: the tensor maps span the tensor's 80 columns,
+//     so TMA fills columns 80-127 of Q, K and V with zeros and the bulk
+//     store of O drops them; the scale stays 1/sqrt(80).  That costs
+//     1.6x the products of an exact 80-column tile (64 + 16-column
+//     chunks, k 5 x 16, n 80), which would need a second swizzle mode
+//     and tensor map per operand.
 // * float32: the CUDA-core kernel (first namespace below, unchanged from
 //   the first port): 64 x 64 tiles in f32 shared memory, 256 threads, FMA
 //   on the CUDA cores.  It stays for float32 because a TF32 tensor-core
@@ -120,9 +128,10 @@ __global__ void __launch_bounds__(THREADS)
                      const T* __restrict__ v, T* __restrict__ o, int s,
                      int window, float scale) {
   // columns of the accumulator per thread: DV/16, as float4 groups of
-  // 64 columns apart when DV >= 64, else one run of DV/16
+  // 64 columns apart when DV is 64 or 128, one run of DV/16 at DV 32,
+  // and single columns 16 apart at DV 80
   constexpr int CPT = DV / 16;
-  constexpr int VEC = CPT >= 4 ? 4 : CPT;
+  constexpr int VEC = CPT % 4 == 0 ? 4 : CPT < 4 ? CPT : 1;
   constexpr int NG = CPT / VEC;
   constexpr int GSTRIDE = 16 * VEC;
 
@@ -294,6 +303,7 @@ int launch_dv(const void* q, const void* k, const void* v, void* o,
   switch (dv) {
     case 32: return launch_t<T, D, 32>(q, k, v, o, bh, s, window, st);
     case 64: return launch_t<T, D, 64>(q, k, v, o, bh, s, window, st);
+    case 80: return launch_t<T, D, 80>(q, k, v, o, bh, s, window, st);
     case 128: return launch_t<T, D, 128>(q, k, v, o, bh, s, window, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -306,6 +316,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
   switch (d) {
     case 32: return launch_dv<T, 32>(q, k, v, o, bh, s, dv, window, st);
     case 64: return launch_dv<T, 64>(q, k, v, o, bh, s, dv, window, st);
+    case 80: return launch_dv<T, 80>(q, k, v, o, bh, s, dv, window, st);
     case 128: return launch_dv<T, 128>(q, k, v, o, bh, s, dv, window, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -815,12 +826,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // The (bh, s, cols) bf16 tensor at ptr, in boxes of `rows` x one swizzle
-// chunk; rows past s read as zeros and are not written.
-int encode(CUtensorMap* map, const void* ptr, int cols, int64_t s,
+// chunk of a tile `width` columns wide (width >= cols); rows past s and
+// columns past cols read as zeros and are not written.
+int encode(CUtensorMap* map, const void* ptr, int cols, int width, int64_t s,
            int64_t bh, int rows) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const int cw = chunk_cols(cols);
+  const int cw = chunk_cols(width);
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)s,
                               (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
@@ -835,15 +847,19 @@ int encode(CUtensorMap* map, const void* ptr, int cols, int64_t s,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Tiles D and DV wide for head dims d <= D and dv <= DV: the columns past
+// d and dv load as zeros (adding nothing to q.k or to p.v) and the bulk
+// store drops them.
 template <int D, int DV>
 int launch_t(const void* q, const void* k, const void* v, void* o,
-             int64_t bh, int64_t s, int64_t window, cudaStream_t stream) {
+             int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
+             cudaStream_t stream) {
   using L = Layout<D, DV>;
   CUtensorMap tq, tk, tv, to;
-  int err = encode(&tq, q, D, s, bh, BQ);
-  if (err == 0) err = encode(&tk, k, D, s, bh, BK);
-  if (err == 0) err = encode(&tv, v, DV, s, bh, BK);
-  if (err == 0) err = encode(&to, o, DV, s, bh, 64);
+  int err = encode(&tq, q, (int)d, D, s, bh, BQ);
+  if (err == 0) err = encode(&tk, k, (int)d, D, s, bh, BK);
+  if (err == 0) err = encode(&tv, v, (int)dv, DV, s, bh, BK);
+  if (err == 0) err = encode(&to, o, (int)dv, DV, s, bh, 64);
   if (err != 0) return err;
   static bool ready[64] = {};
   int dev = 0;
@@ -857,7 +873,8 @@ int launch_t(const void* q, const void* k, const void* v, void* o,
     ready[dev] = true;
   }
   const dim3 grid((unsigned)bh, (unsigned)((s + BQ - 1) / BQ));
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  // the scale of the real head dim, not of the tile
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
   // a window of at least s masks nothing
   const int win = window > 0 && window < s ? (int)window : -1;
   flash_fwd_tc<D, DV><<<grid, THREADS, L::SMEM, stream>>>(
@@ -865,14 +882,18 @@ int launch_t(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// A head dim of 80 runs in the 128-column tile (two 64-column chunks,
+// 128-byte swizzle), its columns 80-127 zero-filled by TMA: 1.6x the
+// products of an exact 80-column tile, and no new kernel instantiation.
 template <int D>
 int launch_dv(const void* q, const void* k, const void* v, void* o,
-              int64_t bh, int64_t s, int64_t dv, int64_t window,
+              int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
               cudaStream_t st) {
   switch (dv) {
-    case 32: return launch_t<D, 32>(q, k, v, o, bh, s, window, st);
-    case 64: return launch_t<D, 64>(q, k, v, o, bh, s, window, st);
-    case 128: return launch_t<D, 128>(q, k, v, o, bh, s, window, st);
+    case 32: return launch_t<D, 32>(q, k, v, o, bh, s, d, dv, window, st);
+    case 64: return launch_t<D, 64>(q, k, v, o, bh, s, d, dv, window, st);
+    case 80:
+    case 128: return launch_t<D, 128>(q, k, v, o, bh, s, d, dv, window, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -883,9 +904,10 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
   if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) != 0)
     return (int)cudaErrorMisalignedAddress;  // TMA reads 16-byte aligned
   switch (d) {
-    case 32: return launch_dv<32>(q, k, v, o, bh, s, dv, window, st);
-    case 64: return launch_dv<64>(q, k, v, o, bh, s, dv, window, st);
-    case 128: return launch_dv<128>(q, k, v, o, bh, s, dv, window, st);
+    case 32: return launch_dv<32>(q, k, v, o, bh, s, d, dv, window, st);
+    case 64: return launch_dv<64>(q, k, v, o, bh, s, d, dv, window, st);
+    case 80:
+    case 128: return launch_dv<128>(q, k, v, o, bh, s, d, dv, window, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -895,6 +917,7 @@ int64_t layout_dv(int64_t dv, int64_t* stages) {
   switch (dv) {
     case 32: *stages = Layout<D, 32>::STAGES; return Layout<D, 32>::SMEM;
     case 64: *stages = Layout<D, 64>::STAGES; return Layout<D, 64>::SMEM;
+    case 80:
     case 128: *stages = Layout<D, 128>::STAGES; return Layout<D, 128>::SMEM;
   }
   return 0;
@@ -911,6 +934,7 @@ extern "C" int64_t flash_attention_layout(int64_t d, int64_t dv,
   switch (d) {
     case 32: return tc::layout_dv<32>(dv, stages);
     case 64: return tc::layout_dv<64>(dv, stages);
+    case 80:
     case 128: return tc::layout_dv<128>(dv, stages);
   }
   return 0;

@@ -12,7 +12,9 @@ wrapper, any S works: the kernel masks the tail itself.
 On the GPU the dtype picks the route inside the same entry point:
 bfloat16 runs on the tensor cores (wgmma, K/V tiles by TMA), float32 on
 the CUDA cores in full float32 (a TF32 product would not keep the
-float32 smoke configs' logits within ~1e-6 of the CPU's).
+float32 smoke configs' logits within ~1e-6 of the CPU's).  The head dims
+are :data:`HEAD_DIMS`; on the tensor cores a dim of 80 (zamba2) runs in
+the 128-column tile with its columns 80-127 loaded as zeros.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 from .runtime import CudaKernel, on_cuda, require
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_launch",
@@ -48,7 +50,7 @@ def attention_plain(q, k, v, window=None):
 
 def flash_attention(q, k, v, window=None):
     """q, k: (BH, S, d); v: (BH, S, dv); float32 or bfloat16; d and dv
-    in (32, 64, 128) on the GPU.  window: None or an int >= 1."""
+    in :data:`HEAD_DIMS` on the GPU.  window: None or an int >= 1."""
     require(q.dim() == 3 and k.shape == q.shape and v.dim() == 3
             and v.shape[:2] == q.shape[:2],
             f"flash_attention takes (BH, S, d) q/k and (BH, S, dv) v, got "

@@ -32,8 +32,8 @@ import torch
 from .runtime import CudaKernel, on_cuda, require
 
 #: (P, N) pairs the kernel is built for: the reference's kernel tests,
-#: the smoke configs and mamba2-370m at full width
-SHAPES = ((8, 4), (16, 8), (32, 16), (64, 32), (64, 128))
+#: the smoke configs, mamba2-370m and zamba2-2.7b at full width
+SHAPES = ((8, 4), (16, 8), (32, 16), (64, 32), (64, 64), (64, 128))
 MAX_CHUNK = 256
 
 KERNEL = CudaKernel(

@@ -1,13 +1,15 @@
 """Batched LM serving driver: prefill a batch of prompts into a cache,
-then decode greedily, on the dense and SSM architectures (qwen2-0.5b,
-mamba2-370m; the smoke preset by default, ``--full`` for the published
-widths).
+then decode greedily, on the dense, SSM and hybrid architectures
+(qwen2-0.5b, mamba2-370m, zamba2-2.7b; the smoke preset by default,
+``--full`` for the published widths).
 
 Usage (on the GPU; ``--device cpu`` runs the plain kernel versions):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --batch 4 --prompt-len 64 --gen 32 [--full]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      [--full]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       [--full]
 
 Federated classifiers serve through the service's fixed-batch endpoint
@@ -26,7 +28,7 @@ import time
 import torch
 
 from .. import rng
-from ..configs import get_config
+from ..configs import ArchConfig, get_config
 from ..data import synthetic_tokens
 from ..device import resolve_device
 from ..models.transformer import count_params, init_params
@@ -39,18 +41,23 @@ def _sync(device):
 
 
 @torch.inference_mode()
-def serve(arch: str, batch: int, prompt_len: int, gen: int,
+def serve(arch: str | ArchConfig, batch: int, prompt_len: int, gen: int,
           smoke: bool = True, log=print, device=None):
     """Returns the generated tokens (batch, gen) int64.  Weights from
-    PRNGKey(0) and prompts from PRNGKey(1), as in the reference."""
+    PRNGKey(0) and prompts from PRNGKey(1), as in the reference.
+    ``arch`` is a registry name (``smoke`` picks its preset) or a config,
+    served as it is."""
     device = resolve_device(device)
     if device.type == "cuda":
         # float32 matmuls in full float32, like the reference (the
         # smoke config's parity with the CPU depends on it)
         torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(arch)
-    if smoke:
-        cfg = cfg.smoke()
+    if isinstance(arch, ArchConfig):
+        cfg, arch = arch, arch.name
+    else:
+        cfg = get_config(arch)
+        if smoke:
+            cfg = cfg.smoke()
     params = init_params(cfg, rng.PRNGKey(0), device=device)
     log(f"arch={arch} params={count_params(params)/1e6:.2f}M "
         f"batch={batch} prompt={prompt_len} gen={gen}")

@@ -1,5 +1,6 @@
 """Serving step builders: cache-building prefill and greedy decode, for
-the dense (KV cache) and SSM (state and conv cache) families.
+the dense (KV cache), SSM (state and conv cache) and hybrid (both, per
+super-block) families.
 
 The reference's train step, its chunked LM loss and the multi-pod
 federated sync steps wait for the training part of ROADMAP A15.
@@ -14,7 +15,8 @@ from ..models.transformer import forward
 
 def make_prefill_step(cfg, seq_len: int):
     """tokens (B, S) -> (last-token logits, filled cache of ``seq_len``;
-    the SSM cache does not depend on ``seq_len``)."""
+    the SSM cache, and the hybrid's mamba part, do not depend on
+    ``seq_len``)."""
 
     def prefill_step(params, batch):
         tokens = batch["tokens"]

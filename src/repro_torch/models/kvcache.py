@@ -1,19 +1,24 @@
-"""Decode-time caches of the dense and SSM families.
+"""Decode-time caches of the dense, SSM and hybrid families.
 
 Layout, as in the reference, every per-layer leaf stacked on a leading
-layer axis:
+layer axis (the hybrid's on its super-block axes):
 
-  dense : {"pos": int, "layers": {"k", "v": (L, B, Sc, Hkv, hd)}}
-  ssm   : {"pos": int, "layers": {"state": (L, B, H, N, P) float32,
-                                  "conv": (L, B, k-1, Cd)}}
+  dense  : {"pos": int, "layers": {"k", "v": (L, B, Sc, Hkv, hd)}}
+  ssm    : {"pos": int, "layers": {"state": (L, B, H, N, P) float32,
+                                   "conv": (L, B, k-1, Cd)}}
+  hybrid : {"pos": int, "mamba": {"state": (G, A, B, H, N, P) float32,
+                                  "conv": (G, A, B, k-1, Cd)},
+                        "attn": {"k", "v": (G, B, Sc, Hkv, hd)}}
 
-``Sc`` is ``min(seq_len, sliding_window)``: a sliding-window cache is a
-ring buffer.  ``pos`` (the next position to write) is a Python int here;
-key positions are derived from it (:func:`kv_positions`), so empty and
-ring slots need no stored metadata.
+with G = L // attn_every super-blocks of A = attn_every mamba layers;
+the one shared attention block keeps a cache per super-block.  ``Sc`` is
+``min(seq_len, sliding_window)``: a sliding-window cache is a ring
+buffer.  ``pos`` (the next position to write) is a Python int here; key
+positions are derived from it (:func:`kv_positions`), so empty and ring
+slots need no stored metadata.
 
-The MLA, hybrid and audio caches and the int8 ``kv_quant`` cache wait
-for their families (ROADMAP A15).
+The MLA and audio caches and the int8 ``kv_quant`` cache wait for their
+families (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ def cache_len(cfg, seq_len: int) -> int:
 def _check(cfg):
     if cfg.family == "ssm":
         return
-    if cfg.family != "dense" or cfg.attn_type != "gqa":
+    if cfg.family not in ("dense", "hybrid") or cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"cache of family {cfg.family!r} / attention {cfg.attn_type!r}"
             " is not ported yet: ROADMAP A15")
@@ -42,29 +47,45 @@ def _check(cfg):
             "the int8 KV cache (kv_quant) is not ported yet: ROADMAP A15")
 
 
+def _mamba_shapes(cfg, lead, batch: int):
+    return {"state": (lead + (batch, cfg.ssm_heads, cfg.ssm_state,
+                              cfg.ssm_head_dim), torch.float32),
+            "conv": (lead + (batch, cfg.ssm_conv - 1, conv_dim(cfg)),
+                     dtype_of(cfg))}
+
+
+def _kv_shapes(cfg, lead, batch: int, seq_len: int):
+    kv = lead + (batch, cache_len(cfg, seq_len), cfg.num_kv_heads,
+                 cfg.head_dim)
+    return {"k": (kv, dtype_of(cfg)), "v": (kv, dtype_of(cfg))}
+
+
 def cache_shapes(cfg, batch: int, seq_len: int):
     """Full cache tree of (shape, dtype) pairs."""
     _check(cfg)
-    dt = dtype_of(cfg)
     L = cfg.num_layers
+    out = {"pos": ((), torch.int64)}
     if cfg.family == "ssm":
-        return {"pos": ((), torch.int64), "layers": {
-            "state": ((L, batch, cfg.ssm_heads, cfg.ssm_state,
-                       cfg.ssm_head_dim), torch.float32),
-            "conv": ((L, batch, cfg.ssm_conv - 1, conv_dim(cfg)), dt)}}
-    kv = (L, batch, cache_len(cfg, seq_len), cfg.num_kv_heads,
-          cfg.head_dim)
-    return {"pos": ((), torch.int64),
-            "layers": {"k": (kv, dt), "v": (kv, dt)}}
+        out["layers"] = _mamba_shapes(cfg, (L,), batch)
+    elif cfg.family == "hybrid":
+        G, A = L // cfg.attn_every, cfg.attn_every
+        out["mamba"] = _mamba_shapes(cfg, (G, A), batch)
+        out["attn"] = _kv_shapes(cfg, (G,), batch, seq_len)
+    else:
+        out["layers"] = _kv_shapes(cfg, (L,), batch, seq_len)
+    return out
 
 
 def init_cache(cfg, batch: int, seq_len: int, device=None):
     """An empty cache on ``device`` (default: the GPU)."""
     device = resolve_device(device)
     shapes = cache_shapes(cfg, batch, seq_len)
-    return {"pos": 0,
-            "layers": {k: torch.zeros(s, dtype=d, device=device)
-                       for k, (s, d) in shapes["layers"].items()}}
+    cache = {"pos": 0}
+    for group, leaves in shapes.items():
+        if group != "pos":
+            cache[group] = {k: torch.zeros(s, dtype=d, device=device)
+                            for k, (s, d) in leaves.items()}
+    return cache
 
 
 def kv_positions(cfg, pos: int, Sc: int, batch: int, device=None):

@@ -1,4 +1,4 @@
-"""Architecture assembly of the dense and SSM families: init,
+"""Architecture assembly of the dense, SSM and hybrid families: init,
 cache-building prefill and single-token decode.
 
 Parameters are a nested dict of tensors with the reference's tree and
@@ -6,9 +6,14 @@ layouts: every block leaf is stacked on a leading layer axis ``(L, ...)``
 and dense weights are ``(in, out)`` applied as ``x @ W``.  The layers run
 as a Python loop over that axis (the reference's ``lax.scan``).
 
+The hybrid family (zamba2) stacks its mamba blocks on two axes
+``(G, A, ...)``: G = L // attn_every super-blocks of A = attn_every
+mamba layers, each followed by the one ``shared_attn`` block (the same
+weights every super-block, a cache of its own in each).
+
 What waits for later slices (ROADMAP A15): the no-cache forward and the
-training step, the MoE, MLA, hybrid, vlm and audio families, learned
-positions and embedding inputs.
+training step, the MoE, MLA, vlm and audio families, learned positions
+and embedding inputs.
 """
 from __future__ import annotations
 
@@ -26,13 +31,13 @@ from .shardhooks import constrain
 
 
 def _check(cfg) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP A15")
     if cfg.embed_input:
         raise NotImplementedError(
             "embedding inputs (embed_input) are not ported yet: ROADMAP A15")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "hybrid"):
         check_supported(cfg)
     elif cfg.pos_emb != "rope":
         raise NotImplementedError(
@@ -74,15 +79,22 @@ def init_params(cfg, key, device=None):
          "embed": embed_init(ks[0], cfg.vocab_size, cfg.d_model, dt)}
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(ks[1], cfg.vocab_size, cfg.d_model, dt).T
-    init_layer = _init_mamba_block if cfg.family == "ssm" else _init_block
+    hybrid = cfg.family == "hybrid"
+    init_layer = _init_block if cfg.family == "dense" else _init_mamba_block
+    n = cfg.num_layers
+    if hybrid:   # G * A mamba layers from one split, then (G, A, ...)
+        G, A = cfg.num_layers // cfg.attn_every, cfg.attn_every
+        n = G * A
     # jax.vmap over the layer keys: one layer at a time into the stack
     blocks = None
-    for i, k in enumerate(rng.split(ks[3], cfg.num_layers).unbind(0)):
+    for i, k in enumerate(rng.split(ks[3], n).unbind(0)):
         layer = init_layer(cfg, k)
         if blocks is None:
-            blocks = _map(lambda t: t.new_empty((cfg.num_layers,) + t.shape),
-                          layer)
+            blocks = _map(lambda t: t.new_empty((n,) + t.shape), layer)
         _map(lambda dst, src: dst[i].copy_(src), blocks, layer)
+    if hybrid:
+        blocks = _map(lambda t: t.view((G, A) + t.shape[1:]), blocks)
+        p["shared_attn"] = _init_block(cfg, ks[4])   # one shared block
     p["blocks"] = blocks
     return p
 
@@ -152,24 +164,37 @@ def forward(cfg, params, batch, cache=None):
     x = params["embed"][tokens]
 
     pos0 = int(cache["pos"])
-    layers = cache["layers"]
     blocks = params["blocks"]
-    if cfg.family == "ssm":   # no positions: the state carries the past
-        for i in range(cfg.num_layers):
-            x, _ = _mamba_block(cfg, _map(lambda t: t[i], blocks), x,
-                                {k: v[i] for k, v in layers.items()})
-    else:
-        Sc = layers["k"].shape[2]
+    if cfg.family != "ssm":
+        Sc = (cache["attn"] if cfg.family == "hybrid"
+              else cache["layers"])["k"].shape[2]
         q_pos = (pos0 + torch.arange(T, device=dev)).expand(B, T)
         if T == 1:
             kv_pos = kvcache.kv_positions(cfg, pos0, Sc, B, dev)
         else:
             kv_pos = q_pos   # prefill: attention over the live keys
+
+    def at(tree, *idx):
+        return {k: v[idx] for k, v in tree.items()}
+
+    if cfg.family == "ssm":   # no positions: the state carries the past
+        for i in range(cfg.num_layers):
+            x, _ = _mamba_block(cfg, _map(lambda t: t[i], blocks), x,
+                                at(cache["layers"], i))
+    elif cfg.family == "hybrid":   # the reference's _scan_hybrid
+        G, A = cfg.num_layers // cfg.attn_every, cfg.attn_every
+        for g in range(G):
+            for a in range(A):
+                x, _ = _mamba_block(cfg, _map(lambda t: t[g, a], blocks),
+                                    x, at(cache["mamba"], g, a))
+            x, _ = _attn_block(cfg, params["shared_attn"], x, q_pos, kv_pos,
+                               at(cache["attn"], g))
+    else:
         for i in range(cfg.num_layers):
             x, _ = _attn_block(cfg, _map(lambda t: t[i], blocks), x, q_pos,
-                               kv_pos, {k: v[i] for k, v in layers.items()})
+                               kv_pos, at(cache["layers"], i))
 
     x = apply_norm(cfg, params["final_norm"], constrain(x, "resid"))
     logits = constrain(x @ unembed_matrix(cfg, params), "logits")
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    return logits, aux, {"pos": pos0 + T, "layers": layers}
+    return logits, aux, dict(cache, pos=pos0 + T)

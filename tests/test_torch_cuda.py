@@ -254,6 +254,9 @@ def test_a_round_state_outlives_the_next_round(gpu):
     (8, 256, 32, torch.float32, None, 2e-5),
     (4, 300, 128, torch.float32, 7, 2e-5),
     (2, 1, 32, torch.float32, None, 2e-5),
+    (128, 1024, 80, torch.bfloat16, 4096, 2 * 2.0 ** -6),  # zamba2 prefill
+    (8, 160, 80, torch.float32, 128, 2e-5),   # its width-80 smoke variant
+    (4, 300, 80, torch.float32, 7, 2e-5),
 ])
 def test_flash_attention_kernel_matches_plain(gpu, bh, s, d, dtype, window,
                                               atol):
@@ -288,6 +291,11 @@ def test_flash_attention_kernel_matches_plain(gpu, bh, s, d, dtype, window,
     (4, 512, 128, 128, 128),
     (1, 1024, 64, 64, None),
     (57, 256, 64, 64, None),
+    (3, 129, 80, 80, None),       # head dim 80: the 128-column tile
+    (4, 512, 80, 80, 128),
+    (2, 1, 80, 80, None),
+    (4, 256, 80, 64, None),
+    (4, 256, 64, 80, None),
 ])
 def test_flash_attention_bf16_kernel_matches_plain(gpu, bh, s, d, dv,
                                                    window):
@@ -361,6 +369,8 @@ SSD_TOL = dict(atol=2e-4, rtol=1e-3)
     (4, 256, 64, 32, 64, 1),
     (1, 64, 16, 8, 16, 1),
     (6, 96, 8, 4, 96, 2),            # a chunk that is no multiple of 64
+    (320, 1024, 64, 64, 256, 80),    # zamba2-2.7b prefill, batch 4
+    (16, 160, 64, 64, 32, 8),        # its width-80 smoke variant
 ])
 def test_ssd_scan_kernel_matches_plain(gpu, bh, s, p, n, chunk, hpg):
     xdt, B, C, dA = _ssd_inputs(gpu, bh, s, p, n, hpg, s + p)
@@ -433,6 +443,9 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(gpu):
             (xdt.double(), B.double(), C.double(), dA.double(), 32),
             (xdt, B, C, dA, 48),                      # S % chunk
             (xdt[:, :, :24].contiguous(), B, C, dA, 32),   # P = 24
+            (*_ssd_inputs(gpu, 2, 64, 64, 48, 1, 0), 32),   # (P, N)
+            (*_ssd_inputs(gpu, 2, 64, 32, 64, 1, 0), 32),   # not in
+            (*_ssd_inputs(gpu, 2, 64, 128, 64, 1, 0), 32),  # SHAPES
             (xdt, B.transpose(0, 1).contiguous().transpose(0, 1), C, dA,
              32),                                     # not contiguous
             (xdt.repeat(1, 4, 1), B.repeat(1, 4, 1), C.repeat(1, 4, 1),
@@ -441,6 +454,53 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(gpu):
             ssd_scan(*args)
     with pytest.raises(ValueError):
         ssd_scan(xdt, B, C, dA.cpu(), 32)
+
+
+@pytest.mark.parametrize("d", [16, 96, 120])
+def test_flash_attention_refuses_head_dims_it_is_not_built_for(gpu, d):
+    """Head dims outside HEAD_DIMS raise on the card (the plain version
+    takes any)."""
+    q = torch.randn(2, 64, d, device=gpu).bfloat16()
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q.float(), q.float(), q.float())
+
+
+def test_hybrid_serve_smoke_on_gpu_matches_cpu(gpu):
+    runtime.reset_launch_counts()
+    got = serve("zamba2-2.7b", 2, 160, 6, smoke=True, device=gpu)
+    # one super-block: one attention call, two mamba layers
+    assert runtime.launch_counts()["flash_attention"] == 1
+    assert runtime.launch_counts()["ssd_scan"] == 2
+    want = serve("zamba2-2.7b", 2, 160, 6, smoke=True, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_hybrid_width80_on_gpu_matches_cpu(gpu):
+    """The zamba2 smoke preset at head dim 80 and (P, N) = (64, 64), two
+    super-blocks: the prefill goes through flash attention's float32
+    route at d 80 and the SSD scan at (64, 64); the same greedy tokens as
+    the CPU's, last-token logits within 1e-4."""
+    from repro_torch.configs.zamba2_2_7b import width80_smoke
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import init_params
+
+    cfg = width80_smoke()
+    runtime.reset_launch_counts()
+    got = serve(cfg, 2, 160, 6, device=gpu)
+    assert runtime.launch_counts()["flash_attention"] == 2
+    assert runtime.launch_counts()["ssd_scan"] == 4
+    assert torch.equal(got.cpu(), serve(cfg, 2, 160, 6, device="cpu"))
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 160)))
+    logits = []
+    for dev in (gpu, "cpu"):
+        with torch.inference_mode():
+            params = init_params(cfg, rng.PRNGKey(0), device=dev)
+            logits.append(make_prefill_step(cfg, 166)(
+                params, {"tokens": toks.to(dev)})[0].cpu())
+    torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=1e-4)
 
 
 def test_mamba2_serve_smoke_on_gpu_matches_cpu(gpu):

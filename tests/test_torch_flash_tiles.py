@@ -10,6 +10,9 @@ output divided by max(l, 1e-30).  The card test
 not in the package, meets the same tolerance against ``attention_plain``
 and against the reference's Pallas kernel (interpret mode, 128-blocks),
 which shows where no card is that the tolerance is the algorithm's own.
+A head dim of 80 runs in the kernel's 128-column tile, its columns 80-127
+loaded as zeros and the output's dropped, with the scale of d = 80; the
+emulation pads the same way.
 """
 import math
 
@@ -23,20 +26,27 @@ from test_torch_reference import load_reference
 
 BQ = BK = 128           # the kernel's query and key tiles
 ATOL = 2 * 2.0 ** -6    # tests/test_torch_cuda.py, the bfloat16 cases
+TILE = {32: 32, 64: 64, 80: 128, 128: 128}   # head dim -> tile columns
 
 
 def emulate(q, k, v, window=None):
     """q, k: (BH, S, d), v: (BH, S, dv), bfloat16 -> (BH, S, dv) bfloat16,
-    by the kernel's tiles and online softmax, in float32."""
+    by the kernel's tiles and online softmax, in float32, with q, k and v
+    zero-padded to the tile's columns."""
     bh, s, d = q.shape
-    qf, kf, vf = q.float(), k.float(), v.float()
+    dv = v.shape[-1]
+
+    def pad(t, width):
+        return torch.nn.functional.pad(t.float(), (0, width - t.shape[-1]))
+
+    qf, kf, vf = pad(q, TILE[d]), pad(k, TILE[d]), pad(v, TILE[dv])
     c = torch.tensor(math.log2(math.e) / math.sqrt(d), dtype=torch.float32)
-    out = torch.empty(bh, s, v.shape[-1])
+    out = torch.empty(bh, s, TILE[dv])
     for q0 in range(0, s, BQ):
         rows = torch.arange(q0, min(q0 + BQ, s))
         m = torch.full((bh, len(rows)), -1e30)
         l = torch.zeros(bh, len(rows))
-        acc = torch.zeros(bh, len(rows), v.shape[-1])
+        acc = torch.zeros(bh, len(rows), vf.shape[-1])
         first = max(0, q0 - window + 1) // BK if window else 0
         for t in range(first, int(rows[-1]) // BK + 1):
             keys = torch.arange(t * BK, min(t * BK + BK, s))
@@ -54,7 +64,7 @@ def emulate(q, k, v, window=None):
                    + torch.einsum("bqk,bkd->bqd", p, vf[:, keys]))
             m = m_new
         out[:, rows] = acc / l.clamp_min(1e-30)[..., None]
-    return out.bfloat16()
+    return out[..., :dv].bfloat16()
 
 
 def _inputs(bh, s, d, seed):
@@ -65,7 +75,7 @@ def _inputs(bh, s, d, seed):
 
 @pytest.mark.parametrize("s", [100, 256])
 @pytest.mark.parametrize("window", [None, 64])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_tiled_emulation_matches_attention_plain(d, window, s):
     """S 100 ends inside the first key tile; S 256 crosses two."""
     q, k, v = (torch.tensor(x).bfloat16() for x in _inputs(3, s, d, s + d))
@@ -76,7 +86,7 @@ def test_tiled_emulation_matches_attention_plain(d, window, s):
 
 
 @pytest.mark.parametrize("window", [None, 64])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_tiled_emulation_matches_pallas(d, window):
     """At S 256, which the Pallas wrapper's 128-blocks divide."""
     ref = load_reference()

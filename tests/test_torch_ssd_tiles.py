@@ -30,6 +30,8 @@ SSD_TOL = dict(atol=2e-4, rtol=1e-3)  # tests/test_torch_cuda.py
 SERVE = (128, 1024, 64, 128, 256, 32)  # mamba2-370m prefill, batch 4
 SHAPES = [                            # tests/test_torch_cuda.py's cases
     SERVE,
+    (320, 1024, 64, 64, 256, 80),     # zamba2-2.7b prefill, batch 4
+    (16, 160, 64, 64, 32, 8),         # its width-80 smoke variant
     (32, 64, 32, 16, 32, 16),         # mamba2-370m smoke, prompt 40 padded
     (8, 512, 64, 128, 128, 1),        # a chunk below 256
     (1, 256, 64, 128, 256, 1),        # one row
