@@ -7,8 +7,9 @@ weighted aggregation over the successful set, and — for the FLD family
 
 The device axis is explicit: parameters are stacked ``(D, ...)`` and a
 model runs the whole population at once (``apply_stacked``: the CNN as
-one grouped convolution, the MLP as one ``bmm`` a layer), where the
-reference vmaps over devices.  A local SGD step sends every device's
+one grouped convolution, the MLP as one ``bmm`` a layer, the transformer
+classifier one device after another), where the reference vmaps over
+devices.  A local SGD step sends every device's
 logits through one launch of the fused distill step kernel, and on the
 GPU the steps of local SGD and of the eq. (5) conversion are replays of
 a captured CUDA graph (``core/graphs.py``).  A mixed-architecture cohort
@@ -26,7 +27,7 @@ captured local step, per-point values as tensors, and every host
 decision of the loop as a masked tensor operation.
 
 Not ported yet, and refused by :class:`FederatedConfig`: the
-mesh-sharded path (A13) and the transformer classifier (A15).
+mesh-sharded path (A13).
 """
 from __future__ import annotations
 
@@ -174,11 +175,6 @@ class FederatedConfig:
             # cohort
             self.model_partition = (
                 None if set(part) == {self.model} else part)
-        if "transformer" in set(mspec.parts) | set(
-                self.model_partition or ()):
-            raise NotImplementedError(
-                "the transformer classifier is not ported yet "
-                "(ROADMAP A15)")
         if self.model_partition is not None:
             # mixed cohorts exchange outputs: only the FD-family uplink
             # aggregates in the shared (C, C) output space
@@ -386,7 +382,8 @@ class FederatedTrainer:
     """Runs one protocol over a simulated device population.
 
     model: an object with ``init``, ``apply``, ``apply_stacked`` and
-    ``num_params`` (the CNN or the MLP), or None to build ``fc.model``
+    ``num_params`` (the CNN, the MLP or the transformer classifier), or
+    None to build ``fc.model``
     from the registry for ``fc.task``.  A mixed cohort
     (``fc.model_partition``) builds one classifier per architecture and
     takes model=None.  ``device``: where everything runs — the GPU by

@@ -65,6 +65,8 @@
 //   the card's logits to the CPU's within ~1e-6.  It is a documented
 //   dtype route, not a fallback: a bfloat16 call of a supported shape
 //   always takes the tensor-core kernel, and nothing retries on failure.
+//   It also takes head dim 16 (the federated transformer classifier's,
+//   whose no-grad forward runs here): one accumulator column a thread.
 //
 // The tensor maps are encoded on the host in flash_attention_launch with
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint (the
@@ -301,6 +303,7 @@ int launch_dv(const void* q, const void* k, const void* v, void* o,
               int64_t bh, int64_t s, int64_t dv, int64_t window,
               cudaStream_t st) {
   switch (dv) {
+    case 16: return launch_t<T, D, 16>(q, k, v, o, bh, s, window, st);
     case 32: return launch_t<T, D, 32>(q, k, v, o, bh, s, window, st);
     case 64: return launch_t<T, D, 64>(q, k, v, o, bh, s, window, st);
     case 80: return launch_t<T, D, 80>(q, k, v, o, bh, s, window, st);
@@ -314,6 +317,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
              int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
              cudaStream_t st) {
   switch (d) {
+    case 16: return launch_dv<T, 16>(q, k, v, o, bh, s, dv, window, st);
     case 32: return launch_dv<T, 32>(q, k, v, o, bh, s, dv, window, st);
     case 64: return launch_dv<T, 64>(q, k, v, o, bh, s, dv, window, st);
     case 80: return launch_dv<T, 80>(q, k, v, o, bh, s, dv, window, st);

@@ -155,3 +155,25 @@ class PartitionSpec:
                                 rare_labels=rare_labels,
                                 rare_count=rare_count,
                                 common_count=common, seed=self.seed)
+
+
+def protocol_dataset(num_devices: int = 10, per_device: int = 500,
+                     iid: bool = True, n_test: int = 1000, seed: int = 0,
+                     device=None):
+    """The training CLI's paper dataset (the benchmark harness's
+    ``protocol_dataset``): synthetic digits from ``PRNGKey(seed)`` on
+    ``device`` (default: the GPU), the first ``num_devices *
+    per_device`` split IID or by the paper's non-IID recipe (numpy
+    arrays), the rest the test set (tensors)."""
+    from .. import rng
+    from .synthetic import synthetic_images
+
+    ntr = num_devices * per_device
+    x, y = synthetic_images(rng.PRNGKey(seed), ntr + n_test, device=device)
+    if iid:
+        dev_x, dev_y = partition_iid(x[:ntr], y[:ntr], num_devices,
+                                     per_device, 10, seed=seed)
+    else:
+        dev_x, dev_y = partition_noniid(x[:ntr], y[:ntr], num_devices,
+                                        seed=seed)
+    return dev_x, dev_y, x[ntr:], y[ntr:]

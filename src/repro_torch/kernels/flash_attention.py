@@ -13,8 +13,11 @@ On the GPU the dtype picks the route inside the same entry point:
 bfloat16 runs on the tensor cores (wgmma, K/V tiles by TMA), float32 on
 the CUDA cores in full float32 (a TF32 product would not keep the
 float32 smoke configs' logits within ~1e-6 of the CPU's).  The head dims
-are :data:`HEAD_DIMS`; on the tensor cores a dim of 80 (zamba2) runs in
-the 128-column tile with its columns 80-127 loaded as zeros.
+are :data:`HEAD_DIMS`, and on the CUDA cores also 16 (the transformer
+classifier's, :data:`F32_HEAD_DIMS`); on the tensor cores a dim of 80
+(zamba2) runs in the 128-column tile with its columns 80-127 loaded as
+zeros.  The kernel is forward-only: a CUDA input that requires grad
+under grad mode raises ValueError (``runtime.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -22,10 +25,11 @@ import ctypes
 
 import torch
 
-from .runtime import CudaKernel, on_cuda, require
+from .runtime import CudaKernel, on_cuda, refuse_grad, require
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
+F32_HEAD_DIMS = (16,) + HEAD_DIMS
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_launch",
@@ -50,7 +54,8 @@ def attention_plain(q, k, v, window=None):
 
 def flash_attention(q, k, v, window=None):
     """q, k: (BH, S, d); v: (BH, S, dv); float32 or bfloat16; d and dv
-    in :data:`HEAD_DIMS` on the GPU.  window: None or an int >= 1."""
+    in :data:`HEAD_DIMS` on the GPU (:data:`F32_HEAD_DIMS` in float32).
+    window: None or an int >= 1."""
     require(q.dim() == 3 and k.shape == q.shape and v.dim() == 3
             and v.shape[:2] == q.shape[:2],
             f"flash_attention takes (BH, S, d) q/k and (BH, S, dv) v, got "
@@ -59,14 +64,16 @@ def flash_attention(q, k, v, window=None):
             f"flash_attention window must be None or >= 1, got {window}")
     if not on_cuda(q, k, v):
         return attention_plain(q, k, v, window)
+    refuse_grad("flash_attention", q, k, v)
     require(q.dtype in _DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
             f"flash_attention kernel takes float32 or bfloat16, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}")
     bh, s, d = q.shape
     dv = v.shape[-1]
-    require(d in HEAD_DIMS and dv in HEAD_DIMS,
-            f"flash_attention kernel takes head dims {HEAD_DIMS}, got "
-            f"d={d}, dv={dv}")
+    dims = F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
+    require(d in dims and dv in dims,
+            f"flash_attention kernel takes head dims {dims} in {q.dtype}, "
+            f"got d={d}, dv={dv}")
     require(all(t.is_contiguous() for t in (q, k, v)),
             "flash_attention kernel operands must be contiguous")
     require(q.dtype != torch.bfloat16

@@ -9,6 +9,12 @@ the checkout, keyed by a hash of the source, the headers and the flags.
 Dispatch rule (:func:`on_cuda`): tensors on a CUDA device launch the
 kernel, or raise; tensors on the CPU take the plain PyTorch version.
 There is no fallback from one to the other.
+
+The forward-only kernels (flash attention, the SSD scan) have no
+backward: :func:`records_grad` says whether autograd would record a
+call, and their callers take the differentiable PyTorch math when it
+does (``models/attention.py``, ``models/mamba2.py``), while the kernels'
+wrappers refuse such a call (:func:`refuse_grad`).
 """
 from __future__ import annotations
 
@@ -153,6 +159,21 @@ def on_cuda(*tensors) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel for tensors on {dev}")
+
+
+def records_grad(*tensors) -> bool:
+    """True if autograd records an operation on ``tensors``: grad mode
+    is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """A forward-only kernel's guard: raise ValueError when autograd
+    would record the call, whose result would be cut from the graph."""
+    require(not records_grad(*tensors),
+            f"{name} kernel has no backward: it takes no CUDA input that "
+            "requires grad under grad mode (run it under torch.no_grad(), "
+            "or take the differentiable PyTorch version)")
 
 
 def require(cond: bool, msg: str) -> None:

@@ -21,7 +21,9 @@ The wrapper allocates the passes' scratch, (BH, S / chunk, P, N) states
 and (BH, S / chunk) decays, and frees it when the call returns.  Beyond the
 reference's ``ssd_scan_pallas``, which returns y from a zero state, it
 can start from a given state and return the state after the last chunk,
-which the model's cache-building prefill hands to decode.
+which the model's cache-building prefill hands to decode.  The kernel is
+forward-only: a CUDA input that requires grad under grad mode raises
+ValueError (``runtime.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import ctypes
 
 import torch
 
-from .runtime import CudaKernel, on_cuda, require
+from .runtime import CudaKernel, on_cuda, refuse_grad, require
 
 #: (P, N) pairs the kernel is built for: the reference's kernel tests,
 #: the smoke configs, mamba2-370m and zamba2-2.7b at full width
@@ -95,6 +97,7 @@ def ssd_scan(xdt, Bh, Ch, dA, chunk: int, final: bool = False,
         y, state = ssd_scan_plain(xdt, Bh, Ch, dA, chunk, heads_per_group,
                                   initial_state)
         return (y, state) if final else y
+    refuse_grad("ssd_scan", xdt, Bh, Ch, dA, *init)
     require(all(t.dtype == torch.float32 for t in (xdt, Bh, Ch, dA, *init)),
             "ssd_scan kernel takes float32")
     require(chunk <= MAX_CHUNK,

@@ -4,15 +4,21 @@ All masking is position-driven, as in the reference: query positions
 ``q_pos`` (B, T) and key positions ``kv_pos`` (B, S), with -1 marking
 empty cache slots.
 
-Prefill (``T > 1`` writing a fresh cache) is causal self-attention over
-the prompt's own positions, so it goes through the flash-attention
-kernel (:func:`repro_torch.kernels.flash_attention.flash_attention`,
-``csrc/flash_attention.cu`` on the GPU).  Decode (``T == 1``) attends
-to the cache through :func:`masked_attention`, plain PyTorch, as the
-reference's decode is plain jnp.
+Causal self-attention over a sequence's own positions (the
+cache-building prefill, and the no-cache forward) goes through the
+flash-attention kernel (:func:`repro_torch.kernels.flash_attention.
+flash_attention`, ``csrc/flash_attention.cu`` on the GPU) when autograd
+records nothing: the kernel has no backward.  When a gradient is being
+recorded (training) it takes :func:`masked_attention`, the reference's
+differentiable math: dense for T <= ``CHUNKED_THRESHOLD``, above it the
+chunked online softmax with each block recomputed in the backward, as
+the reference's ``jax.checkpoint`` does.  Decode (``T == 1``) attends to
+the cache through :func:`masked_attention`, as the reference's decode
+is plain jnp.  Positions are learned (added to the embeddings by the
+caller) or RoPE.
 
 MLA, cross-attention, qk-norm, M-RoPE and the int8 cache wait for the
-families that use them (ROADMAP A15).
+families that use them (ROADMAP A15-arch).
 """
 from __future__ import annotations
 
@@ -22,11 +28,17 @@ import torch
 
 from .. import rng
 from ..kernels.flash_attention import flash_attention
-from .layers import dense_init, dtype_of
+from ..kernels.runtime import records_grad
+from .layers import checkpointed, dense_init, dtype_of
 from .rope import apply_rope, rope_cos_sin
 from .shardhooks import constrain
 
 NEG_INF = -1e30
+# Above this many query tokens, masked_attention takes the chunked
+# online-softmax path, so the (T, S) score matrix never exists in full.
+CHUNKED_THRESHOLD = 1024
+Q_CHUNK = 512
+KV_CHUNK = 1024
 
 
 def check_supported(cfg) -> None:
@@ -35,12 +47,12 @@ def check_supported(cfg) -> None:
             "qk_norm": cfg.qk_norm, "mrope": cfg.mrope,
             "cross_attention": cfg.cross_attention,
             "kv_quant": cfg.kv_quant,
-            "pos_emb": cfg.pos_emb != "rope"}
+            "pos_emb": cfg.pos_emb not in ("rope", "learned")}
     for name, hit in todo.items():
         if hit:
             raise NotImplementedError(
                 f"{name}={getattr(cfg, name)!r} is not ported yet: "
-                "ROADMAP A15")
+                "ROADMAP A15-arch")
 
 
 # ---------------------------------------------------------------------------
@@ -77,22 +89,89 @@ def _mask_bias(q_pos, kv_pos, window, causal):
     return torch.where(valid, zero, NEG_INF)
 
 
+def _gqa_out(p, v):
+    """p: (B,Hkv,G,T,S) float32, v: (B,S,Hkv,d) -> (B,T,Hkv,G,d); the
+    probabilities are cast to v's dtype before the product."""
+    return torch.einsum("bhgts,bshd->bthgd", p.to(v.dtype), v)
+
+
 def masked_attention(q, k, v, q_pos, kv_pos, *, scale, window=None,
                      causal=True):
-    """Grouped attention, the reference's dense path.  q: (B,T,Hq,d),
-    k/v: (B,S,Hkv,dv).  Scores in float32; the probabilities are cast to
-    v's dtype before the product with V."""
+    """Grouped attention, the reference's math.  q: (B,T,Hq,d), k/v:
+    (B,S,Hkv,dv).  Scores in float32; the probabilities are cast to v's
+    dtype before the product with V.  Dense for T <=
+    ``CHUNKED_THRESHOLD``, chunked online softmax above it."""
     B, T, Hq, d = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, T, Hkv, G, d)
+    if T > CHUNKED_THRESHOLD:
+        return _chunked_attention(qg, k, v, q_pos, kv_pos, scale, window,
+                                  causal).to(q.dtype)
     bias = _mask_bias(q_pos, kv_pos, window, causal)            # (B,T,S)
     s = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float())
     s = s * scale + bias[:, None, None]
     s = constrain(s, "scores_seq")
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgts,bshd->bthgd", p.to(v.dtype), v)
-    return o.reshape(B, T, Hq, v.shape[-1])
+    return _gqa_out(p, v).reshape(B, T, Hq, v.shape[-1])
+
+
+def _kv_block(qi, qp, ki, vi, kp, m, l, o, scale, window, causal):
+    """One (query chunk, key chunk) step of the online softmax: the
+    running max ``m``, sum ``l`` and output ``o`` (B,Hkv,G,Qc,dv), all
+    float32."""
+    bias = _mask_bias(qp, kp, window, causal)                   # (B,Qc,Kc)
+    s = torch.einsum("bthgd,bshd->bhgts", qi.float(), ki.float())
+    s = s * scale + bias[:, None, None]
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * alpha + p.sum(-1)
+    o_new = o * alpha[..., None] + \
+        _gqa_out(p, vi).float().permute(0, 2, 3, 1, 4)
+    return m_new, l_new, o_new
+
+
+def _q_block(qi, qp, kc, vc, kpc, scale, window, causal):
+    """One query chunk against every key chunk -> (B,Qc,Hkv,G,dv) in
+    q's dtype.  Each key step is recomputed in the backward."""
+    B, Qc, Hkv, G, _ = qi.shape
+    dv = vc[0].shape[-1]
+    m = qi.new_full((B, Hkv, G, Qc), NEG_INF, dtype=torch.float32)
+    l = qi.new_zeros((B, Hkv, G, Qc), dtype=torch.float32)
+    o = qi.new_zeros((B, Hkv, G, Qc, dv), dtype=torch.float32)
+    for ki, vi, kp in zip(kc, vc, kpc):
+        m, l, o = checkpointed(records_grad(qi, ki, vi), _kv_block, qi,
+                                qp, ki, vi, kp, m, l, o, scale, window,
+                                causal)
+    o = o / l.clamp_min(1e-30)[..., None]
+    # cast before stacking, as the reference does
+    return o.to(qi.dtype).permute(0, 3, 1, 2, 4)
+
+
+def _chunked_attention(qg, k, v, q_pos, kv_pos, scale, window, causal):
+    """The reference's chunked online softmax: Q_CHUNK query rows at a
+    time against KV_CHUNK keys at a time, keys padded to a whole chunk
+    with ``kv_pos = -1`` (masked).  qg: (B,T,Hkv,G,d)."""
+    B, T, Hkv, G, d = qg.shape
+    if T % Q_CHUNK:
+        raise ValueError(f"T={T} not divisible by q-chunk {Q_CHUNK}")
+    S = k.shape[1]
+    if S % KV_CHUNK:
+        pad = -(-S // KV_CHUNK) * KV_CHUNK - S
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
+    kc = k.split(KV_CHUNK, dim=1)
+    vc = v.split(KV_CHUNK, dim=1)
+    kpc = kv_pos.split(KV_CHUNK, dim=1)
+    rec = records_grad(qg, k, v)
+    out = [checkpointed(rec, _q_block, qi, qp, kc, vc, kpc, scale, window,
+                         causal)
+           for qi, qp in zip(qg.split(Q_CHUNK, dim=1),
+                             q_pos.split(Q_CHUNK, dim=1))]
+    o = torch.cat(out, dim=1)                       # (B,T,Hkv,G,dv)
+    return o.reshape(B, T, Hkv * G, o.shape[-1])
 
 
 def prefill_attention(q, k, v, window=None):
@@ -132,12 +211,9 @@ def gqa_attention(cfg, p, x, q_pos, kv_pos, cache=None):
     k/v go into its slot) and T > 1 prefills (the cache is rebuilt from
     the prompt's tail).  Unlike the reference, which returns a new
     cache, the port writes the given cache tensors in place and returns
-    them.  Without a cache the forward is the training path, which is
-    not ported yet."""
+    them.  Without a cache (the training forward, ``kv_pos = q_pos``)
+    it returns (out, None)."""
     check_supported(cfg)
-    if cache is None:
-        raise NotImplementedError(
-            "the no-cache (training) forward is not ported yet: ROADMAP A15")
     B, T, D = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = constrain(_proj(x, p["wq"], p.get("bq")).reshape(B, T, H, hd),
@@ -146,25 +222,32 @@ def gqa_attention(cfg, p, x, q_pos, kv_pos, cache=None):
                   "kv")
     v = constrain(_proj(x, p["wv"], p.get("bv")).reshape(B, T, Hkv, hd),
                   "kv")
-    cos, sin = rope_cos_sin(q_pos, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cfg.pos_emb == "rope":
+        cos, sin = rope_cos_sin(q_pos, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    scale = 1.0 / math.sqrt(hd)
 
-    if T == 1:
+    if cache is not None and T == 1:
         # ---- decode: scatter this token's k/v into its slot ----
         slots = _cache_slots(cfg, q_pos, cache["k"].shape[1])   # (B,1)
         ck = _scatter_cache(cache["k"], k, slots)
         cv = _scatter_cache(cache["v"], v, slots)
-        o = masked_attention(q, ck, cv, q_pos, kv_pos,
-                             scale=1.0 / math.sqrt(hd),
+        o = masked_attention(q, ck, cv, q_pos, kv_pos, scale=scale,
                              window=cfg.sliding_window, causal=True)
     else:
-        # ---- prefill: causal attention over the prompt, then the cache
-        # from its tail ----
-        o = prefill_attention(q, k, v, window=cfg.sliding_window)
-        Sc = cache["k"].shape[1]
-        cache["k"].copy_(_tail_cache(k, Sc))
-        cache["v"].copy_(_tail_cache(v, Sc))
+        # ---- prefill / no-cache: causal attention over the sequence's
+        # own keys; the kernel has no backward, so a recorded gradient
+        # takes the reference's differentiable math ----
+        if records_grad(q, k, v):
+            o = masked_attention(q, k, v, q_pos, kv_pos, scale=scale,
+                                 window=cfg.sliding_window, causal=True)
+        else:
+            o = prefill_attention(q, k, v, window=cfg.sliding_window)
+        if cache is not None:   # prefill: the cache from the tail
+            Sc = cache["k"].shape[1]
+            cache["k"].copy_(_tail_cache(k, Sc))
+            cache["v"].copy_(_tail_cache(v, Sc))
     return o.reshape(B, T, H * hd) @ p["wo"], cache
 
 

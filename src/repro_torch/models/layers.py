@@ -12,6 +12,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import rng
 
@@ -98,6 +99,16 @@ def act_fn(name: str):
 
 
 def grad_dtype_guard(x):
-    """The identity: the serve path takes no gradients (the reference's
-    cotangent cast matters only in its backward)."""
+    """The identity: autograd's cotangent of a tensor already has the
+    tensor's dtype (the reference casts it to keep the residual's in
+    bf16)."""
     return x
+
+
+def checkpointed(recompute: bool, fn, *args):
+    """``fn(*args)``; with ``recompute``, recomputed in the backward from
+    its inputs instead of saving its activations (the reference's
+    ``jax.checkpoint``)."""
+    if recompute:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

@@ -4,14 +4,15 @@ Semantics (per head h, state N, head-dim P):
     h_t = exp(A_h * dt_t) h_{t-1} + dt_t * B_t x_t^T
     y_t = C_t . h_t + D_h x_t
 
-The prefill's chunked SSD (:func:`ssd_chunked`) goes through the SSD scan
-kernel (:func:`repro_torch.kernels.ssd_scan.ssd_scan`,
-``csrc/ssd_scan.cu``) for CUDA tensors, which also returns the final
-state that the cache-building prefill hands to decode; for CPU tensors it
-is the reference's ``ssd_chunked``, einsum for einsum.  The single-token
-decode is plain PyTorch, as the reference's is plain jnp.  Unlike the
-reference, which returns a new cache, the port writes the given cache
-tensors in place.
+The chunked SSD (:func:`ssd_chunked`) goes through the SSD scan kernel
+(:func:`repro_torch.kernels.ssd_scan.ssd_scan`, ``csrc/ssd_scan.cu``) for
+CUDA tensors when autograd records nothing (the kernel has no backward),
+which also returns the final state that the cache-building prefill hands
+to decode.  For CPU tensors, and when a gradient is being recorded
+(training), it is the reference's ``ssd_chunked``, einsum for einsum.
+The single-token decode is plain PyTorch, as the reference's is plain
+jnp.  Unlike the reference, which returns a new cache, the port writes
+the given cache tensors in place.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import rng
-from ..kernels.runtime import on_cuda
+from ..kernels.runtime import on_cuda, records_grad
 from ..kernels.ssd_scan import ssd_scan
 from .layers import dense_init, dtype_of
 from .shardhooks import constrain
@@ -64,7 +65,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, initial_state=None):
     """Chunked SSD. x: (B,S,H,P) fp32, dt: (B,S,H), A: (H,),
     Bm/Cm: (B,S,G,N). Returns (y (B,S,H,P), final_state (B,H,N,P))."""
     init = () if initial_state is None else (initial_state,)
-    if on_cuda(x, dt, A, Bm, Cm, *init):
+    if on_cuda(x, dt, A, Bm, Cm, *init) and \
+            not records_grad(x, dt, A, Bm, Cm, *init):
         return _ssd_chunked_scan(x, dt, A, Bm, Cm, chunk, initial_state)
     return _ssd_chunked_plain(x, dt, A, Bm, Cm, chunk, initial_state)
 

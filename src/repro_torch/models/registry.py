@@ -3,8 +3,7 @@
 ``parse_model`` turns a spec string into a :class:`ModelSpec` — one
 architecture (``"cnn"``) or a "+"-joined cohort (``"cnn+mlp"``) whose
 parts go to devices round-robin (:meth:`ModelSpec.partition`).  The
-FIRST part is the global (server-side) architecture.  The transformer
-classifier is not ported yet (ROADMAP A15).
+FIRST part is the global (server-side) architecture.
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ import dataclasses
 from ..registry import MODELS, canonical_model
 from .cnn import CNN
 from .mlp import MLPClassifier
+from .transformer import TransformerClassifier
 
 
 def build_model(name: str, input_shape, num_classes: int):
@@ -22,8 +22,7 @@ def build_model(name: str, input_shape, num_classes: int):
         return CNN(num_classes, tuple(input_shape))
     if name == "mlp":
         return MLPClassifier(num_classes, tuple(input_shape))
-    raise NotImplementedError(
-        "the transformer classifier is not ported yet (ROADMAP A15)")
+    return TransformerClassifier(num_classes, tuple(input_shape))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,19 +1,24 @@
 """Architecture assembly of the dense, SSM and hybrid families: init,
-cache-building prefill and single-token decode.
+the no-cache (training) forward, cache-building prefill and single-token
+decode, plus the :class:`Transformer` facade and the federated
+:class:`TransformerClassifier`.
 
 Parameters are a nested dict of tensors with the reference's tree and
 layouts: every block leaf is stacked on a leading layer axis ``(L, ...)``
 and dense weights are ``(in, out)`` applied as ``x @ W``.  The layers run
-as a Python loop over that axis (the reference's ``lax.scan``).
+as a Python loop over that axis (the reference's ``lax.scan``); in the
+no-cache forward each layer (each super-block in the hybrid) is
+recomputed in the backward when autograd records it
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` with
+``nothing_saveable`` does.
 
 The hybrid family (zamba2) stacks its mamba blocks on two axes
 ``(G, A, ...)``: G = L // attn_every super-blocks of A = attn_every
 mamba layers, each followed by the one ``shared_attn`` block (the same
 weights every super-block, a cache of its own in each).
 
-What waits for later slices (ROADMAP A15): the no-cache forward and the
-training step, the MoE, MLA, vlm and audio families, learned positions
-and embedding inputs.
+What waits for later slices (ROADMAP A15-arch): the MoE, MLA, vlm and
+audio families.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ from .. import rng
 from ..device import resolve_device
 from . import kvcache
 from .attention import check_supported, gqa_attention, init_attn
-from .layers import apply_norm, dtype_of, embed_init, init_norm
+from .layers import (apply_norm, dense_init, dtype_of, embed_init, init_norm,
+                     checkpointed)
 from .mamba2 import init_mamba, mamba2_forward
 from .mlp import init_mlp, mlp
 from .shardhooks import constrain
@@ -33,15 +39,12 @@ from .shardhooks import constrain
 def _check(cfg) -> None:
     if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP A15")
-    if cfg.embed_input:
-        raise NotImplementedError(
-            "embedding inputs (embed_input) are not ported yet: ROADMAP A15")
+            f"family {cfg.family!r} is not ported yet: ROADMAP A15-arch")
     if cfg.family in ("dense", "hybrid"):
         check_supported(cfg)
-    elif cfg.pos_emb != "rope":
+    elif cfg.pos_emb not in ("rope", "learned"):
         raise NotImplementedError(
-            f"pos_emb={cfg.pos_emb!r} is not ported yet: ROADMAP A15")
+            f"pos_emb={cfg.pos_emb!r} is not ported yet: ROADMAP A15-arch")
 
 
 # ---------------------------------------------------------------------------
@@ -62,9 +65,9 @@ def _init_mamba_block(cfg, key):
             "mamba": init_mamba(cfg, key)}
 
 
-def _map(fn, *trees):
+def tree_map(fn, *trees):
     if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
 
 
@@ -75,10 +78,13 @@ def init_params(cfg, key, device=None):
     key = key.to(resolve_device(device))
     ks = rng.split(key, 8).unbind(0)
     dt = dtype_of(cfg)
-    p = {"final_norm": init_norm(cfg, cfg.d_model, key.device),
-         "embed": embed_init(ks[0], cfg.vocab_size, cfg.d_model, dt)}
-    if not cfg.tie_embeddings:
+    p = {"final_norm": init_norm(cfg, cfg.d_model, key.device)}
+    if not cfg.embed_input:
+        p["embed"] = embed_init(ks[0], cfg.vocab_size, cfg.d_model, dt)
+    if not cfg.tie_embeddings or cfg.embed_input:
         p["unembed"] = embed_init(ks[1], cfg.vocab_size, cfg.d_model, dt).T
+    if cfg.pos_emb == "learned":
+        p["pos_embed"] = embed_init(ks[2], cfg.max_position, cfg.d_model, dt)
     hybrid = cfg.family == "hybrid"
     init_layer = _init_block if cfg.family == "dense" else _init_mamba_block
     n = cfg.num_layers
@@ -90,34 +96,37 @@ def init_params(cfg, key, device=None):
     for i, k in enumerate(rng.split(ks[3], n).unbind(0)):
         layer = init_layer(cfg, k)
         if blocks is None:
-            blocks = _map(lambda t: t.new_empty((n,) + t.shape), layer)
-        _map(lambda dst, src: dst[i].copy_(src), blocks, layer)
+            blocks = tree_map(lambda t: t.new_empty((n,) + t.shape), layer)
+        tree_map(lambda dst, src: dst[i].copy_(src), blocks, layer)
     if hybrid:
-        blocks = _map(lambda t: t.view((G, A) + t.shape[1:]), blocks)
+        blocks = tree_map(lambda t: t.view((G, A) + t.shape[1:]), blocks)
         p["shared_attn"] = _init_block(cfg, ks[4])   # one shared block
     p["blocks"] = blocks
     return p
 
 
+def _from_numpy(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
 def params_from_jax(cfg, tree, device=None):
-    """The reference's ``init_params`` tree (numpy arrays, e.g. through
+    """A reference parameter tree (numpy arrays, e.g. through
     ``jax.tree.map(np.asarray, ...)``) as the port's parameters on
-    ``device`` (default: the GPU).  The layouts are the same."""
-    _check(cfg)
+    ``device`` (default: the GPU).  The layouts are the same, so this
+    takes ``init_params``'s tree, a tree stacked on leading axes (the
+    federated LM steps' pods) and, with ``cfg`` None, any tree."""
+    if cfg is not None:
+        _check(cfg)
     device = resolve_device(device)
-
-    def leaf(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.view(np.int16).copy()).view(
-                torch.bfloat16).to(device)
-        return torch.from_numpy(np.array(a)).to(device)
-
-    return _map(leaf, tree)
+    return tree_map(lambda a: _from_numpy(a, device), tree)
 
 
 def unembed_matrix(cfg, params):
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and not cfg.embed_input:
         return params["embed"].T
     return params["unembed"]
 
@@ -148,53 +157,236 @@ def _mamba_block(cfg, p, x, cache):
     return x + y, cache
 
 
-def forward(cfg, params, batch, cache=None):
-    """Returns (logits (B, T, V), aux_loss, new_cache).
+def _at(tree, *idx):
+    return tree_map(lambda t: t[idx], tree)
 
-    ``batch["tokens"]``: (B, T) int.  With ``cache``: decode (T == 1) or
-    cache-building prefill (T > 1).  The cache's tensors are written in
-    place; the returned cache holds them and the advanced ``pos``."""
+
+def _layers(tree):
+    """The per-layer trees of a tree stacked on a leading layer axis:
+    one ``unbind`` a leaf, whose backward stacks the layers' gradients
+    once (indexing a layer would build a zero stack a layer and add)."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda u: u[i], parts) for i in range(n)]
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def forward(cfg, params, batch, cache=None, *, remat=True,
+            return_hidden=False):
+    """Returns (logits (B, T, V), aux_loss, new_cache), or the
+    final-normed hidden (B, T, D) in place of the logits with
+    ``return_hidden`` (the chunked loss unembeds it itself).
+
+    ``batch["tokens"]``: (B, T) int, or ``batch["embeds"]``: (B, T, D).
+    Without ``cache``: the training forward over positions 0..T-1 (each
+    layer recomputed in the backward with ``remat``; new_cache None).
+    With ``cache``: decode (T == 1) or cache-building prefill (T > 1);
+    the cache's tensors are written in place, and the returned cache
+    holds them and the advanced ``pos``."""
     _check(cfg)
-    if cache is None:
-        raise NotImplementedError(
-            "the no-cache (training) forward is not ported yet: ROADMAP A15")
-    tokens = batch["tokens"]
-    B, T = tokens.shape
-    dev = tokens.device
-    x = params["embed"][tokens]
-
-    pos0 = int(cache["pos"])
-    blocks = params["blocks"]
-    if cfg.family != "ssm":
+    if "embeds" in batch:
+        x = batch["embeds"].to(dtype_of(cfg))
+    else:
+        x = params["embed"][batch["tokens"]]
+    B, T = x.shape[:2]
+    dev = x.device
+    pos0 = 0 if cache is None else int(cache["pos"])
+    q_pos = (pos0 + torch.arange(T, device=dev)).expand(B, T)
+    kv_pos = q_pos   # train / prefill: attention over the live keys
+    if cfg.family != "ssm" and cache is not None and T == 1:
         Sc = (cache["attn"] if cfg.family == "hybrid"
               else cache["layers"])["k"].shape[2]
-        q_pos = (pos0 + torch.arange(T, device=dev)).expand(B, T)
-        if T == 1:
-            kv_pos = kvcache.kv_positions(cfg, pos0, Sc, B, dev)
-        else:
-            kv_pos = q_pos   # prefill: attention over the live keys
+        kv_pos = kvcache.kv_positions(cfg, pos0, Sc, B, dev)
+    if cfg.pos_emb == "learned":
+        x = x + params["pos_embed"][q_pos[0]][None]
+    # each layer keeps only its input for the backward
+    recompute = remat and cache is None and torch.is_grad_enabled()
+    blocks = params["blocks"]
 
-    def at(tree, *idx):
-        return {k: v[idx] for k, v in tree.items()}
+    def attn(x, p, c=None):
+        return _attn_block(cfg, p, x, q_pos, kv_pos, c)[0]
+
+    def mamba(x, p, c=None):
+        return _mamba_block(cfg, p, x, c)[0]
 
     if cfg.family == "ssm":   # no positions: the state carries the past
-        for i in range(cfg.num_layers):
-            x, _ = _mamba_block(cfg, _map(lambda t: t[i], blocks), x,
-                                at(cache["layers"], i))
+        for i, p in enumerate(_layers(blocks)):
+            c = None if cache is None else _at(cache["layers"], i)
+            x = checkpointed(recompute, mamba, x, p, c)
     elif cfg.family == "hybrid":   # the reference's _scan_hybrid
-        G, A = cfg.num_layers // cfg.attn_every, cfg.attn_every
-        for g in range(G):
-            for a in range(A):
-                x, _ = _mamba_block(cfg, _map(lambda t: t[g, a], blocks),
-                                    x, at(cache["mamba"], g, a))
-            x, _ = _attn_block(cfg, params["shared_attn"], x, q_pos, kv_pos,
-                               at(cache["attn"], g))
+
+        def super_block(x, g, group, cache):
+            for a, p in enumerate(_layers(group)):
+                c = None if cache is None else _at(cache["mamba"], g, a)
+                x = mamba(x, p, c)
+            c = None if cache is None else _at(cache["attn"], g)
+            return attn(x, params["shared_attn"], c)
+
+        for g, group in enumerate(_layers(blocks)):
+            x = checkpointed(recompute, super_block, x, g, group, cache)
     else:
-        for i in range(cfg.num_layers):
-            x, _ = _attn_block(cfg, _map(lambda t: t[i], blocks), x, q_pos,
-                               kv_pos, at(cache["layers"], i))
+        for i, p in enumerate(_layers(blocks)):
+            c = None if cache is None else _at(cache["layers"], i)
+            x = checkpointed(recompute, attn, x, p, c)
 
     x = apply_norm(cfg, params["final_norm"], constrain(x, "resid"))
-    logits = constrain(x @ unembed_matrix(cfg, params), "logits")
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    return logits, aux, dict(cache, pos=pos0 + T)
+    new_cache = None if cache is None else dict(cache, pos=pos0 + T)
+    if return_hidden:
+        return x, aux, new_cache
+    logits = constrain(x @ unembed_matrix(cfg, params), "logits")
+    return logits, aux, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Facade + param accounting
+# ---------------------------------------------------------------------------
+
+class Transformer:
+    """Thin facade bundling config + functions (the reference's)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def init(self, key, device=None):
+        return init_params(self.cfg, key, device=device)
+
+    def apply(self, params, batch, cache=None, remat=True):
+        return forward(self.cfg, params, batch, cache, remat=remat)
+
+    def init_cache(self, batch_size, seq_len, device=None):
+        return kvcache.init_cache(self.cfg, batch_size, seq_len,
+                                  device=device)
+
+
+def count_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()
+
+
+def active_params(cfg, params) -> int:
+    """Active parameters per token: all of them in the dense, SSM and
+    hybrid families (MoE's top-k share waits for ROADMAP A15-arch)."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "MoE active parameters are not ported yet: ROADMAP A15-arch")
+    return count_params(params)
+
+
+# ---------------------------------------------------------------------------
+# The federated transformer classifier
+# ---------------------------------------------------------------------------
+
+_SEP = "/"
+
+
+def flatten_tree(tree, prefix=""):
+    """A nested dict of tensors as one level, keys joined by "/".  Sorted
+    keys of the flat dict follow ``jax.tree.flatten``'s order ("/" sorts
+    before every character of a key)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, prefix + k + _SEP))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def nest_tree(flat):
+    """Inverse of :func:`flatten_tree`."""
+    out = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split(_SEP)
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+class TransformerClassifier:
+    """Tiny dense transformer as a federated client model: flatten the
+    input, cut it into ``seq_len`` patch tokens, project to d_model, run
+    the dense stack (``embed_input`` front door, learned positions, GELU
+    MLP), mean-pool the position logits.  The reference's classifier.
+
+    Same contract as the CNN and the MLP (``init``, ``apply``,
+    ``apply_stacked``, ``num_params``; float32 params, logits (B,
+    num_classes)).  Parameters are two levels deep, as the round loop's
+    tree operations take them: ``{"patch": {"w", "b"}, "tf": {path:
+    leaf}}``, where ``tf`` is the reference's ``init_params`` tree with
+    its keys joined by "/" (:func:`flatten_tree`)."""
+
+    def __init__(self, num_classes: int, input_shape: tuple,
+                 d_model: int = 32, num_layers: int = 2, num_heads: int = 2,
+                 head_dim: int = 16, d_ff: int = 64, seq_len: int = 16):
+        from ..configs import ArchConfig
+        self.num_classes = num_classes
+        self.input_shape = tuple(int(s) for s in input_shape)
+        total = int(np.prod(self.input_shape))
+        if total % seq_len:
+            raise ValueError(
+                f"input shape {self.input_shape} ({total} features) does "
+                f"not split into seq_len={seq_len} patch tokens")
+        self.seq_len = seq_len
+        self.patch_dim = total // seq_len
+        self.cfg = ArchConfig(
+            name="fed_transformer", family="dense",
+            source="registry classifier (this repo)",
+            num_layers=num_layers, d_model=d_model, num_heads=num_heads,
+            num_kv_heads=num_heads, d_ff=d_ff, vocab_size=num_classes,
+            head_dim=head_dim, attn_type="gqa", pos_emb="learned",
+            max_position=seq_len, embed_input=True, mlp_act="gelu",
+            param_dtype="float32")
+
+    def init(self, key):
+        """Parameters from ``key`` (the reference's draws, on the key's
+        device)."""
+        kp, kt = rng.split(key, 2).unbind(0)
+        patch = {"w": dense_init(kp, self.patch_dim, self.cfg.d_model,
+                                 torch.float32),
+                 "b": torch.zeros((self.cfg.d_model,), device=key.device)}
+        return {"patch": patch,
+                "tf": flatten_tree(init_params(self.cfg, kt,
+                                               device=key.device))}
+
+    def apply(self, params, x):
+        """x: (B, *input_shape) -> logits (B, num_classes)."""
+        if tuple(x.shape[1:]) != self.input_shape:
+            raise ValueError(
+                f"TransformerClassifier built for input shape "
+                f"{self.input_shape} but got a batch of shape "
+                f"{tuple(x.shape[1:])}")
+        toks = x.reshape(x.shape[0], self.seq_len, self.patch_dim)
+        h = toks @ params["patch"]["w"] + params["patch"]["b"]
+        logits, _, _ = forward(self.cfg, nest_tree(params["tf"]),
+                               {"embeds": h}, remat=False)
+        return logits.mean(1)
+
+    def apply_stacked(self, params, x):
+        """Device-stacked forward: params leaves (D, ...), x (D, B,
+        *input_shape) -> logits (D, B, num_classes), one device at a
+        time (the reference's vmap)."""
+        return torch.stack([
+            self.apply({k: {n: t[d] for n, t in v.items()}
+                        for k, v in params.items()}, x[d])
+            for d in range(x.shape[0])])
+
+    @staticmethod
+    def num_params(params) -> int:
+        return sum(t.numel() for v in params.values() for t in v.values())
+
+
+def classifier_from_jax(params_np, device="cpu"):
+    """The reference classifier's parameters (numpy arrays, leading
+    device axes allowed) -> the port's two-level tree."""
+    return {"patch": params_from_jax(None, params_np["patch"], device),
+            "tf": flatten_tree(params_from_jax(None, params_np["tf"],
+                                               device))}

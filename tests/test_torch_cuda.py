@@ -29,7 +29,8 @@ from repro_torch.kernels.distill_loss import (distill_loss,
                                               distill_step_plain,
                                               phi_psi_bwd_plain,
                                               phi_psi_plain)
-from repro_torch.kernels.flash_attention import (attention_plain,
+from repro_torch.kernels.flash_attention import (F32_HEAD_DIMS,
+                                                 attention_plain,
                                                  flash_attention)
 from repro_torch.kernels.mixup_kernel import mixup, mixup_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -257,6 +258,8 @@ def test_a_round_state_outlives_the_next_round(gpu):
     (128, 1024, 80, torch.bfloat16, 4096, 2 * 2.0 ** -6),  # zamba2 prefill
     (8, 160, 80, torch.float32, 128, 2e-5),   # its width-80 smoke variant
     (4, 300, 80, torch.float32, 7, 2e-5),
+    (2000, 16, 16, torch.float32, None, 2e-5),  # transformer classifier
+    (4, 300, 16, torch.float32, 7, 2e-5),
 ])
 def test_flash_attention_kernel_matches_plain(gpu, bh, s, d, dtype, window,
                                               atol):
@@ -458,13 +461,15 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(gpu):
 
 @pytest.mark.parametrize("d", [16, 96, 120])
 def test_flash_attention_refuses_head_dims_it_is_not_built_for(gpu, d):
-    """Head dims outside HEAD_DIMS raise on the card (the plain version
-    takes any)."""
+    """Head dims outside HEAD_DIMS raise on the card in bfloat16, and
+    outside F32_HEAD_DIMS (HEAD_DIMS and 16, the transformer
+    classifier's) in float32 (the plain version takes any)."""
     q = torch.randn(2, 64, d, device=gpu).bfloat16()
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="head dims"):
-        flash_attention(q.float(), q.float(), q.float())
+    if d not in F32_HEAD_DIMS:
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention(q.float(), q.float(), q.float())
 
 
 def test_hybrid_serve_smoke_on_gpu_matches_cpu(gpu):
@@ -739,3 +744,103 @@ def test_sweep_on_gpu_matches_cpu(gpu):
     np.testing.assert_array_equal(card.latency_s, cpu.latency_s)
     np.testing.assert_array_equal(card.up_ok, cpu.up_ok)
     np.testing.assert_array_equal(card.converged, cpu.converged)
+
+
+# ---------------------------------------------------------------------------
+# LM training (A15-train)
+# ---------------------------------------------------------------------------
+
+def test_forward_only_kernels_refuse_a_recorded_gradient(gpu):
+    """flash_attention and ssd_scan have no backward: a CUDA input that
+    requires grad under grad mode raises; under no_grad they launch."""
+    q = torch.randn(2, 64, 32, device=gpu, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        flash_attention(q, q, q)
+    xdt, B, C, dA = _ssd_inputs(gpu, 2, 128, 32, 16, 1, 0)
+    with pytest.raises(ValueError, match="no backward"):
+        ssd_scan(xdt.requires_grad_(True), B, C, dA, 32)
+    with torch.no_grad():
+        flash_attention(q, q, q)
+        ssd_scan(xdt, B, C, dA, 32)
+
+
+def _train_parity(gpu, arch):
+    """One train step and one favg table of ``arch``'s smoke config on
+    the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_favg_step, make_train_step
+    from repro_torch.models.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).smoke()
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    out = {}
+    for dev in (gpu, torch.device("cpu")):
+        params = init_params(cfg, rng.PRNGKey(0), device=dev)
+        before = runtime.launch_counts()
+        new, m = make_train_step(cfg)(params, {"tokens": toks.to(dev)})
+        grad_launches = sum(runtime.launch_counts().values()) - \
+            sum(before.values())
+        table = make_favg_step(cfg)(new, {"tokens": toks.to(dev)})
+        out[dev.type] = (new, m, table, grad_launches)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-370m",
+                                  "zamba2-2.7b"])
+def test_train_step_on_gpu_matches_cpu(gpu, arch):
+    """No kernel inside the gradient step; loss and updated parameters
+    within 1e-5 of the CPU's; the favg table (through the kernels on the
+    card) within 1e-4."""
+    from repro_torch.launch.steps import tree_leaves
+    out = _train_parity(gpu, arch)
+    new, m, table, launches = out["cuda"]
+    assert launches == 0
+    want_new, want_m, want_table, _ = out["cpu"]
+    assert abs(float(m["loss"]) - float(want_m["loss"])) <= 1e-5
+    for a, b in zip(tree_leaves(new), tree_leaves(want_new)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    torch.testing.assert_close(table.cpu(), want_table, rtol=0, atol=1e-4)
+
+
+def test_full_width_train_step_on_gpu(gpu):
+    """qwen2-0.5b at its published widths (bf16), one train step at (2,
+    512): finite loss and parameters, no kernel launched in it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step, tree_leaves
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("qwen2-0.5b")
+    params = init_params(cfg, rng.PRNGKey(0), device=gpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 512), device=gpu)
+    before = sum(runtime.launch_counts().values())
+    new, m = make_train_step(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert sum(runtime.launch_counts().values()) == before
+    assert torch.isfinite(m["loss"])
+    for t in tree_leaves(new):
+        assert t.dtype == torch.bfloat16 and torch.isfinite(t).all()
+
+
+def test_transformer_classifier_run_on_gpu_matches_cpu(gpu):
+    """model="transformer" for 2 rounds at a small config: the captured
+    local step and conversion (no kernel) and the no-grad evaluation
+    (flash attention at head dim 16) on the card, against the CPU."""
+    x, y = synthetic_images(rng.PRNGKey(42), 1400, device="cpu")
+    dev_x, dev_y = partition_iid(x[:1200], y[:1200], 4, 300, 10, seed=0)
+    fc = dict(protocol="mix2fld", model="transformer", num_devices=4,
+              local_iters=8, local_batch=16, server_iters=8, max_rounds=2,
+              n_seed=6, n_inverse=12)
+    hs = []
+    for dev in (gpu, "cpu"):
+        runtime.reset_launch_counts()
+        hs.append(FederatedTrainer(
+            None, FederatedConfig(**fc),
+            ChannelConfig(num_devices=4, p_up_dbm=40.0),
+            device=dev).run(dev_x, dev_y, x[1200:], y[1200:]))
+        if dev is gpu:
+            assert runtime.launch_counts()["flash_attention"] > 0
+    np.testing.assert_allclose(hs[0]["loss"], hs[1]["loss"], atol=1e-4)
+    np.testing.assert_allclose(hs[0]["acc"], hs[1]["acc"], atol=1e-4)
+    assert hs[0]["uplink_ok"] == hs[1]["uplink_ok"]

@@ -1,6 +1,6 @@
 """The port stands alone: no module of src/repro_torch, and neither
-chip_smoke.py nor the scripts under tools/, imports jax or anything of
-the reference package; only the channel package reaches the raw channel
+chip_smoke.py nor the scripts under tools/, imports jax, anything of
+the reference package or the reference's benchmark harness; only the channel package reaches the raw channel
 model (``repro_torch.channel.model``), everything else goes through the
 link pipeline (the reference's ruff TID251 ban, as a test); and its
 entry points run on the GPU unless asked for the CPU."""
@@ -18,6 +18,7 @@ from repro_torch.data import (parse_task, synthetic_audio, synthetic_images,
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import serve, serve_classifier
 from repro_torch.launch.service import FederatedService, InferenceEndpoint
+from repro_torch.launch.train import main as train_main
 from repro_torch.models import CNN
 from repro_torch.models.kvcache import init_cache
 from repro_torch.models.transformer import init_params
@@ -55,7 +56,8 @@ def _imports(path, resolve=False):
 def test_no_jax_or_reference_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks"), (path,
+                                                                     name)
 
 
 @pytest.mark.parametrize("path", [
@@ -83,6 +85,9 @@ def test_the_walk_sees_the_package():
             "src/repro_torch/sweep/axes.py",
             "src/repro_torch/sweep/engine.py",
             "src/repro_torch/sweep/results.py",
+            "src/repro_torch/optim/__init__.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/steps.py",
             "tools/round_ab.py"} <= names
     # the import walk resolves relative imports: the pipeline's own
     # import of the channel model is seen
@@ -130,4 +135,9 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         InferenceEndpoint(CNN().apply)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_classifier("cnn", "digits", 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedTrainer(None, FederatedConfig(model="transformer"))
+    for mode in ("paper", "lm"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_main(["--mode", mode])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -108,5 +108,12 @@ def test_model_registry_errors():
     with pytest.raises(ValueError) as got:
         parse_model("cnn+rnn")
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        build_model("transformer", (28, 28, 1), 10)
+    # the transformer classifier builds since A15-train, as the
+    # reference's (its shape errors match)
+    tf = build_model("transformer", (28, 28, 1), 10)
+    assert (tf.seq_len, tf.patch_dim) == (16, 49)
+    with pytest.raises(ValueError) as want:
+        ref.build_model("transformer", (5, 5, 1), 10)
+    with pytest.raises(ValueError) as got:
+        build_model("transformer", (5, 5, 1), 10)
+    assert str(got.value) == str(want.value)

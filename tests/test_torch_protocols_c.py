@@ -24,13 +24,28 @@ def test_mix2fld_run_matches_live_reference():
 
 @pytest.mark.parametrize("make,kw", [
     (FederatedConfig, dict(shard_devices=True)),
-    (FederatedConfig, dict(model="transformer")),
-    (FederatedConfig, dict(model="cnn+transformer", protocol="fd")),
+    # the transformer classifier runs since A15-train; the mesh-sharded
+    # device axis (A13) refuses it as it refuses every model
+    (FederatedConfig, dict(model="transformer", shard_devices=True)),
+    (FederatedConfig, dict(model="cnn+transformer", protocol="fd",
+                           shard_devices=True)),
     (FederatedConfig, dict(model_partition=("cnn", "tf"), num_devices=2,
-                           protocol="fd"))])
+                           protocol="fd", shard_devices=True))])
 def test_config_refuses_what_the_slice_does_not_run(make, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(model="transformer"),
+    dict(model="cnn+transformer", protocol="fd"),
+    dict(model_partition=("cnn", "tf"), num_devices=2, protocol="fd")])
+def test_config_takes_the_transformer_classifier(kw):
+    ref = load_reference().protocols
+    want, got = ref.FederatedConfig(**kw), FederatedConfig(**kw)
+    assert got.model == want.model
+    assert got.model_partition == want.model_partition
+    assert got.model_key() == want.model_key()
 
 
 def test_config_validation_matches_reference():

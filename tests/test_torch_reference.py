@@ -2,10 +2,10 @@
 
 ``load_reference()`` imports the JAX package's round loop, models and
 their registry, data, sampling, codecs and privacy, LM stack (dense and
-Mamba2), serve driver, kernels, round program, checkpoint, service and
-sweep engine for the ``tests/test_torch_*.py`` files.  Under the
-installed jax ``repro.models.transformer`` cannot be imported: its guard
-runs
+Mamba2), serve and train drivers, optimizers, kernels, round program,
+checkpoint, service and sweep engine for the ``tests/test_torch_*.py``
+files.  Under the installed jax ``repro.models.transformer`` cannot be
+imported: its guard runs
 ``_obar_p not in _batching.primitive_batchers`` and jax 0.9's
 ``PrimitiveBatchersProxy`` has no ``__contains__`` (ROADMAP C1).  The
 loader gives the proxy a ``__contains__`` (membership in
@@ -59,6 +59,8 @@ _MODULES = {
     "layers": "repro.models.layers",
     "rope": "repro.models.rope",
     "steps": "repro.launch.steps",
+    "train": "repro.launch.train",
+    "optim": "repro.optim",
     "serve": "repro.launch.serve",
     "flash_attention": "repro.kernels.flash_attention",
     "ops": "repro.kernels.ops",

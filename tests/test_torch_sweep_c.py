@@ -128,9 +128,10 @@ def test_mixed_architecture_cohort_matches_loop():
     assert not np.allclose(res.loss[0], res.loss[1])
     with pytest.raises(ValueError, match="cannot mix architectures"):
         het_base(protocol="fl", model="cnn+mlp")
-    with pytest.raises(NotImplementedError, match="A15"):
-        make_grid(het_base(protocol="fd"), CH,
-                  model=("cnn+mlp+transformer",))
+    # the transformer classifier joins a cohort since A15-train
+    grid = make_grid(het_base(protocol="fd"), CH,
+                     model=("cnn+mlp+transformer",))
+    assert [fc.model for fc, _ in grid.points] == ["cnn+mlp+transformer"]
 
 
 @pytest.mark.filterwarnings("ignore::DeprecationWarning")
