@@ -50,14 +50,19 @@
 //     rounds to bf16 into shared memory in TMA's swizzled layout and
 //     writes each warpgroup's rows with one bulk tensor store (rows past
 //     S are dropped).
-//   - head dim 80 (zamba2-2.7b, whose prefill calls this at (BH 128,
-//     S 1024, d 80): 84 MB, 0.025 ms at 3.35 TB/s, bytes-bound) runs in
-//     the 128-column tile: the tensor maps span the tensor's 80 columns,
-//     so TMA fills columns 80-127 of Q, K and V with zeros and the bulk
-//     store of O drops them; the scale stays 1/sqrt(80).  That costs
-//     1.6x the products of an exact 80-column tile (64 + 16-column
-//     chunks, k 5 x 16, n 80), which would need a second swizzle mode
-//     and tensor map per operand.
+//   - head dims 80 (zamba2-2.7b, whose prefill calls this at (BH 128,
+//     S 1024, d 80): 84 MB, 0.025 ms at 3.35 TB/s, bytes-bound), 96
+//     (phi3-mini) and 120 (h2o-danube3) run in the 128-column tile: the
+//     tensor maps span the tensor's d columns, so TMA fills columns
+//     d-127 of Q, K and V with zeros and the bulk store of O drops them;
+//     the scale stays 1/sqrt(d).  That costs 1.6x, 1.33x and 1.07x the
+//     products of an exact tile (at d 80: 64 + 16-column chunks, k 5 x
+//     16, n 80), which would need a second swizzle mode and tensor map
+//     per operand.
+//   - a window skips the key tiles wholly before the first query row's
+//     window (t_first): at h2o-danube3's window of 4096 and S 8192 a
+//     128-row query tile reads 33 key tiles, 1.03x the keys its rows
+//     attend, not the 64 of the causal triangle.
 // * float32: the CUDA-core kernel (first namespace below, unchanged from
 //   the first port): 64 x 64 tiles in f32 shared memory, 256 threads, FMA
 //   on the CUDA cores.  It stays for float32 because a TF32 tensor-core
@@ -66,7 +71,9 @@
 //   dtype route, not a fallback: a bfloat16 call of a supported shape
 //   always takes the tensor-core kernel, and nothing retries on failure.
 //   It also takes head dim 16 (the federated transformer classifier's,
-//   whose no-grad forward runs here): one accumulator column a thread.
+//   whose no-grad forward runs here): one accumulator column a thread;
+//   and 96 and 120 (phi3-mini, h2o-danube3; their float32 smoke
+//   variants' card-vs-CPU parity), with dv == d.
 //
 // The tensor maps are encoded on the host in flash_attention_launch with
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint (the
@@ -129,11 +136,14 @@ __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int s,
                      int window, float scale) {
-  // columns of the accumulator per thread: DV/16, as float4 groups of
-  // 64 columns apart when DV is 64 or 128, one run of DV/16 at DV 32,
-  // and single columns 16 apart at DV 80
-  constexpr int CPT = DV / 16;
-  constexpr int VEC = CPT % 4 == 0 ? 4 : CPT < 4 ? CPT : 1;
+  // columns of the accumulator per thread: ceil(DV/16), as float4
+  // groups of 64 columns apart when DV is 64 or 128, one run of DV/16 at
+  // DV 32, and single columns 16 apart at DV 80 and 96; at DV 120 (no
+  // multiple of 16) eight single columns, the last one past DV for half
+  // the threads, which neither read V there nor store it
+  constexpr bool RAGGED = DV % 16 != 0;
+  constexpr int CPT = (DV + 15) / 16;
+  constexpr int VEC = RAGGED ? 1 : CPT % 4 == 0 ? 4 : CPT < 4 ? CPT : 1;
   constexpr int NG = CPT / VEC;
   constexpr int GSTRIDE = 16 * VEC;
 
@@ -248,6 +258,8 @@ __global__ void __launch_bounds__(THREADS)
           vv[g * 4 + 1] = x.y;
           vv[g * 4 + 2] = x.z;
           vv[g * 4 + 3] = x.w;
+        } else if constexpr (RAGGED) {
+          vv[g] = g * GSTRIDE + tx < DV ? src[0] : 0.f;
         } else {
 #pragma unroll
           for (int e = 0; e < VEC; ++e) vv[g * VEC + e] = src[e];
@@ -269,9 +281,11 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        ob[(size_t)row * DV + g * GSTRIDE + tx * VEC + e] =
-            from_f<T>(acc[i][g * VEC + e] / den);
+      for (int e = 0; e < VEC; ++e) {
+        const int col = g * GSTRIDE + tx * VEC + e;
+        if (!RAGGED || col < DV)
+          ob[(size_t)row * DV + col] = from_f<T>(acc[i][g * VEC + e] / den);
+      }
   }
 }
 
@@ -312,6 +326,7 @@ int launch_dv(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
+// Head dims 96 (phi3-mini) and 120 (h2o-danube3) take dv == d only.
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o,
              int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
@@ -321,6 +336,13 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
     case 32: return launch_dv<T, 32>(q, k, v, o, bh, s, dv, window, st);
     case 64: return launch_dv<T, 64>(q, k, v, o, bh, s, dv, window, st);
     case 80: return launch_dv<T, 80>(q, k, v, o, bh, s, dv, window, st);
+    case 96:
+      if (dv == 96) return launch_t<T, 96, 96>(q, k, v, o, bh, s, window, st);
+      break;
+    case 120:
+      if (dv == 120)
+        return launch_t<T, 120, 120>(q, k, v, o, bh, s, window, st);
+      break;
     case 128: return launch_dv<T, 128>(q, k, v, o, bh, s, dv, window, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -886,9 +908,11 @@ int launch_t(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// A head dim of 80 runs in the 128-column tile (two 64-column chunks,
-// 128-byte swizzle), its columns 80-127 zero-filled by TMA: 1.6x the
-// products of an exact 80-column tile, and no new kernel instantiation.
+// Head dims 80, 96 and 120 run in the 128-column tile (two 64-column
+// chunks, 128-byte swizzle), their columns d-127 zero-filled by TMA: 1.6x,
+// 1.33x and 1.07x the products of an exact tile, and no new kernel
+// instantiation.  The tensor maps' row strides, 160, 192 and 240 bytes,
+// are multiples of 16, as TMA requires.
 template <int D>
 int launch_dv(const void* q, const void* k, const void* v, void* o,
               int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
@@ -897,6 +921,8 @@ int launch_dv(const void* q, const void* k, const void* v, void* o,
     case 32: return launch_t<D, 32>(q, k, v, o, bh, s, d, dv, window, st);
     case 64: return launch_t<D, 64>(q, k, v, o, bh, s, d, dv, window, st);
     case 80:
+    case 96:
+    case 120:
     case 128: return launch_t<D, 128>(q, k, v, o, bh, s, d, dv, window, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -911,6 +937,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
     case 32: return launch_dv<32>(q, k, v, o, bh, s, d, dv, window, st);
     case 64: return launch_dv<64>(q, k, v, o, bh, s, d, dv, window, st);
     case 80:
+    case 96:
+    case 120:
     case 128: return launch_dv<128>(q, k, v, o, bh, s, d, dv, window, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -922,6 +950,8 @@ int64_t layout_dv(int64_t dv, int64_t* stages) {
     case 32: *stages = Layout<D, 32>::STAGES; return Layout<D, 32>::SMEM;
     case 64: *stages = Layout<D, 64>::STAGES; return Layout<D, 64>::SMEM;
     case 80:
+    case 96:
+    case 120:
     case 128: *stages = Layout<D, 128>::STAGES; return Layout<D, 128>::SMEM;
   }
   return 0;
@@ -939,6 +969,8 @@ extern "C" int64_t flash_attention_layout(int64_t d, int64_t dv,
     case 32: return tc::layout_dv<32>(dv, stages);
     case 64: return tc::layout_dv<64>(dv, stages);
     case 80:
+    case 96:
+    case 120:
     case 128: return tc::layout_dv<128>(dv, stages);
   }
   return 0;

@@ -15,9 +15,11 @@ the CUDA cores in full float32 (a TF32 product would not keep the
 float32 smoke configs' logits within ~1e-6 of the CPU's).  The head dims
 are :data:`HEAD_DIMS`, and on the CUDA cores also 16 (the transformer
 classifier's, :data:`F32_HEAD_DIMS`); on the tensor cores a dim of 80
-(zamba2) runs in the 128-column tile with its columns 80-127 loaded as
-zeros.  The kernel is forward-only: a CUDA input that requires grad
-under grad mode raises ValueError (``runtime.refuse_grad``).
+(zamba2), 96 (phi3-mini) or 120 (h2o-danube3) runs in the 128-column
+tile with its columns d-127 loaded as zeros.  On the CUDA cores 96 and
+120 take dv == d only (:data:`F32_SQUARE_DIMS`).  The kernel is
+forward-only: a CUDA input that requires grad under grad mode raises
+ValueError (``runtime.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ import torch
 from .runtime import CudaKernel, on_cuda, refuse_grad, require
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 96, 120, 128)
 F32_HEAD_DIMS = (16,) + HEAD_DIMS
+F32_SQUARE_DIMS = (96, 120)   # float32: built for dv == d only
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_launch",
@@ -50,6 +53,24 @@ def attention_plain(q, k, v, window=None):
     s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v).to(q.dtype)
+
+
+BF16_REL = 2.0 ** -7     # one bf16 ulp of |o| at most: both sides round o
+BF16_ROW_FLOOR = 2.0 ** -5   # of the row's rms: p's bf16 rounding
+
+
+def bf16_excess(got, want) -> float:
+    """The largest ``|got - want| / (BF16_REL * |want| + BF16_ROW_FLOOR *
+    rms(want's row))`` over the elements of a bf16 output against the
+    plain version: at most 1 where the two agree.  The kernel rounds p
+    from the running max and the plain version from the row's, so their
+    difference scales with the row (an output of many keys is small) and
+    not with a fixed bound."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    return float(((g - w).abs()
+                  / (BF16_REL * w.abs() + BF16_ROW_FLOOR * rms + 1e-30))
+                 .max())
 
 
 def flash_attention(q, k, v, window=None):
@@ -74,6 +95,10 @@ def flash_attention(q, k, v, window=None):
     require(d in dims and dv in dims,
             f"flash_attention kernel takes head dims {dims} in {q.dtype}, "
             f"got d={d}, dv={dv}")
+    require(q.dtype != torch.float32 or d == dv
+            or not {d, dv} & set(F32_SQUARE_DIMS),
+            f"flash_attention float32 kernel takes head dims "
+            f"{F32_SQUARE_DIMS} with dv == d only, got d={d}, dv={dv}")
     require(all(t.is_contiguous() for t in (q, k, v)),
             "flash_attention kernel operands must be contiguous")
     require(q.dtype != torch.bfloat16

@@ -1,16 +1,28 @@
 """Batched LM serving driver: prefill a batch of prompts into a cache,
-then decode greedily, on the dense, SSM and hybrid architectures
-(qwen2-0.5b, mamba2-370m, zamba2-2.7b; the smoke preset by default,
+then decode greedily, on the dense, MoE, SSM and hybrid architectures
+(qwen2-0.5b, qwen3-14b, phi3-mini-3.8b, h2o-danube-3-4b,
+qwen2-moe-a2.7b, mamba2-370m, zamba2-2.7b; the smoke preset by default,
 ``--full`` for the published widths).
 
 Usage (on the GPU; ``--device cpu`` runs the plain kernel versions):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --batch 4 --prompt-len 64 --gen 32 [--full]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
+      --batch 4 --prompt-len 1024 [--full]
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch phi3-mini-3.8b [--full]
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch h2o-danube-3-4b --full --batch 2 --prompt-len 8192
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen2-moe-a2.7b [--full]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       [--full]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       [--full]
+
+h2o-danube-3-4b's prompt of 8192 passes its window of 4096: its cache is
+a 4096-slot ring and decode runs past the window.
 
 Federated classifiers serve through the service's fixed-batch endpoint
 (``launch/service.py`` ``InferenceEndpoint``) with ``--classifier`` (a
@@ -42,11 +54,11 @@ def _sync(device):
 
 @torch.inference_mode()
 def serve(arch: str | ArchConfig, batch: int, prompt_len: int, gen: int,
-          smoke: bool = True, log=print, device=None):
+          smoke: bool = True, log=print, device=None, params=None):
     """Returns the generated tokens (batch, gen) int64.  Weights from
-    PRNGKey(0) and prompts from PRNGKey(1), as in the reference.
-    ``arch`` is a registry name (``smoke`` picks its preset) or a config,
-    served as it is."""
+    PRNGKey(0) (or ``params``, a tree of the config on the device) and
+    prompts from PRNGKey(1), as in the reference.  ``arch`` is a registry
+    name (``smoke`` picks its preset) or a config, served as it is."""
     device = resolve_device(device)
     if device.type == "cuda":
         # float32 matmuls in full float32, like the reference (the
@@ -58,7 +70,8 @@ def serve(arch: str | ArchConfig, batch: int, prompt_len: int, gen: int,
         cfg = get_config(arch)
         if smoke:
             cfg = cfg.smoke()
-    params = init_params(cfg, rng.PRNGKey(0), device=device)
+    if params is None:
+        params = init_params(cfg, rng.PRNGKey(0), device=device)
     log(f"arch={arch} params={count_params(params)/1e6:.2f}M "
         f"batch={batch} prompt={prompt_len} gen={gen}")
 

@@ -1,4 +1,5 @@
-"""Grouped-query attention (GQA; optional sliding window and QKV bias).
+"""Grouped-query attention (GQA; optional sliding window, QKV bias and
+qk-norm).
 
 All masking is position-driven, as in the reference: query positions
 ``q_pos`` (B, T) and key positions ``kv_pos`` (B, S), with -1 marking
@@ -17,8 +18,10 @@ the cache through :func:`masked_attention`, as the reference's decode
 is plain jnp.  Positions are learned (added to the embeddings by the
 caller) or RoPE.
 
-MLA, cross-attention, qk-norm, M-RoPE and the int8 cache wait for the
-families that use them (ROADMAP A15-arch).
+qk-norm (qwen3) RMS-normalises each head of q and k over its head dim
+after the projections and before RoPE, as the reference does.  MLA,
+cross-attention, M-RoPE and the int8 cache wait for the families that
+use them (ROADMAP A15-arch).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 from .. import rng
 from ..kernels.flash_attention import flash_attention
 from ..kernels.runtime import records_grad
-from .layers import checkpointed, dense_init, dtype_of
+from .layers import checkpointed, dense_init, dtype_of, rms_norm_headwise
 from .rope import apply_rope, rope_cos_sin
 from .shardhooks import constrain
 
@@ -43,8 +46,7 @@ KV_CHUNK = 1024
 
 def check_supported(cfg) -> None:
     """Raise for every attention option this slice does not run."""
-    todo = {"attn_type": cfg.attn_type != "gqa",
-            "qk_norm": cfg.qk_norm, "mrope": cfg.mrope,
+    todo = {"attn_type": cfg.attn_type != "gqa", "mrope": cfg.mrope,
             "cross_attention": cfg.cross_attention,
             "kv_quant": cfg.kv_quant,
             "pos_emb": cfg.pos_emb not in ("rope", "learned")}
@@ -71,6 +73,9 @@ def init_attn(cfg, key):
     if cfg.qkv_bias:
         for name, n in (("bq", H * hd), ("bk", Hkv * hd), ("bv", Hkv * hd)):
             p[name] = torch.zeros((n,), dtype=dt, device=key.device)
+    if cfg.qk_norm:
+        for name in ("q_scale", "k_scale"):
+            p[name] = torch.ones((hd,), dtype=dt, device=key.device)
     return p
 
 
@@ -222,6 +227,9 @@ def gqa_attention(cfg, p, x, q_pos, kv_pos, cache=None):
                   "kv")
     v = constrain(_proj(x, p["wv"], p.get("bv")).reshape(B, T, Hkv, hd),
                   "kv")
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, p["q_scale"])
+        k = rms_norm_headwise(k, p["k_scale"])
     if cfg.pos_emb == "rope":
         cos, sin = rope_cos_sin(q_pos, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)

@@ -1,14 +1,14 @@
-"""Decode-time caches of the dense, SSM and hybrid families.
+"""Decode-time caches of the dense, MoE, SSM and hybrid families.
 
 Layout, as in the reference, every per-layer leaf stacked on a leading
 layer axis (the hybrid's on its super-block axes):
 
-  dense  : {"pos": int, "layers": {"k", "v": (L, B, Sc, Hkv, hd)}}
-  ssm    : {"pos": int, "layers": {"state": (L, B, H, N, P) float32,
-                                   "conv": (L, B, k-1, Cd)}}
-  hybrid : {"pos": int, "mamba": {"state": (G, A, B, H, N, P) float32,
-                                  "conv": (G, A, B, k-1, Cd)},
-                        "attn": {"k", "v": (G, B, Sc, Hkv, hd)}}
+  dense, moe : {"pos": int, "layers": {"k", "v": (L, B, Sc, Hkv, hd)}}
+  ssm        : {"pos": int, "layers": {"state": (L, B, H, N, P) float32,
+                                       "conv": (L, B, k-1, Cd)}}
+  hybrid     : {"pos": int, "mamba": {"state": (G, A, B, H, N, P) float32,
+                                      "conv": (G, A, B, k-1, Cd)},
+                            "attn": {"k", "v": (G, B, Sc, Hkv, hd)}}
 
 with G = L // attn_every super-blocks of A = attn_every mamba layers;
 the one shared attention block keeps a cache per super-block.  ``Sc`` is
@@ -38,7 +38,8 @@ def cache_len(cfg, seq_len: int) -> int:
 def _check(cfg):
     if cfg.family == "ssm":
         return
-    if cfg.family not in ("dense", "hybrid") or cfg.attn_type != "gqa":
+    if cfg.family not in ("dense", "moe", "hybrid") \
+            or cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"cache of family {cfg.family!r} / attention {cfg.attn_type!r}"
             " is not ported yet: ROADMAP A15")

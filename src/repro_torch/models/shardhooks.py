@@ -7,6 +7,7 @@ through :func:`set_activation_sharding`.
 
 kinds: resid (B,S,D) | heads (B,S,H,d) | kv (B,S,Hkv,d) | logits (B,S,V)
        scores_seq (B,Hkv,G,T,S) | ssm_inner (B,S,H,P)
+       combine (G,Sg,E,C) | dispatched (G,E,C,D)  (the MoE dispatch)
 """
 from __future__ import annotations
 

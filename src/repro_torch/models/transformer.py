@@ -1,4 +1,4 @@
-"""Architecture assembly of the dense, SSM and hybrid families: init,
+"""Architecture assembly of the dense, MoE, SSM and hybrid families: init,
 the no-cache (training) forward, cache-building prefill and single-token
 decode, plus the :class:`Transformer` facade and the federated
 :class:`TransformerClassifier`.
@@ -17,8 +17,10 @@ The hybrid family (zamba2) stacks its mamba blocks on two axes
 mamba layers, each followed by the one ``shared_attn`` block (the same
 weights every super-block, a cache of its own in each).
 
-What waits for later slices (ROADMAP A15-arch): the MoE, MLA, vlm and
-audio families.
+The MoE family (qwen2-moe) is the dense block with ``moe`` in place of
+``mlp`` (:mod:`repro_torch.models.moe`); each layer's router loss adds
+into the float32 ``aux`` that :func:`forward` returns.  What waits for
+later slices (ROADMAP A15-arch): the MLA, vlm and audio families.
 """
 from __future__ import annotations
 
@@ -33,14 +35,15 @@ from .layers import (apply_norm, dense_init, dtype_of, embed_init, init_norm,
                      checkpointed)
 from .mamba2 import init_mamba, mamba2_forward
 from .mlp import init_mlp, mlp
+from .moe import init_moe, moe_ffn
 from .shardhooks import constrain
 
 
 def _check(cfg) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP A15-arch")
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family != "ssm":
         check_supported(cfg)
     elif cfg.pos_emb not in ("rope", "learned"):
         raise NotImplementedError(
@@ -54,10 +57,14 @@ def _check(cfg) -> None:
 def _init_block(cfg, key):
     ks = rng.split(key, 4).unbind(0)
     dev = key.device
-    return {"ln1": init_norm(cfg, cfg.d_model, dev),
-            "ln2": init_norm(cfg, cfg.d_model, dev),
-            "attn": init_attn(cfg, ks[0]),
-            "mlp": init_mlp(cfg, ks[1])}
+    p = {"ln1": init_norm(cfg, cfg.d_model, dev),
+         "ln2": init_norm(cfg, cfg.d_model, dev),
+         "attn": init_attn(cfg, ks[0])}
+    if cfg.is_moe:
+        p["moe"] = init_moe(cfg, ks[1])
+    else:
+        p["mlp"] = init_mlp(cfg, ks[1])
+    return p
 
 
 def _init_mamba_block(cfg, key):
@@ -86,7 +93,8 @@ def init_params(cfg, key, device=None):
     if cfg.pos_emb == "learned":
         p["pos_embed"] = embed_init(ks[2], cfg.max_position, cfg.d_model, dt)
     hybrid = cfg.family == "hybrid"
-    init_layer = _init_block if cfg.family == "dense" else _init_mamba_block
+    init_layer = (_init_block if cfg.family in ("dense", "moe")
+                  else _init_mamba_block)
     n = cfg.num_layers
     if hybrid:   # G * A mamba layers from one split, then (G, A, ...)
         G, A = cfg.num_layers // cfg.attn_every, cfg.attn_every
@@ -142,12 +150,16 @@ def count_params(params) -> int:
 # ---------------------------------------------------------------------------
 
 def _attn_block(cfg, p, x, q_pos, kv_pos, cache):
+    """Returns (x, the layer's router loss or None, cache)."""
     x = constrain(x, "resid")
     h = apply_norm(cfg, p["ln1"], x)
     a, cache = gqa_attention(cfg, p["attn"], h, q_pos, kv_pos, cache)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x)
-    return x + mlp(cfg, p["mlp"], h), cache
+    if cfg.is_moe:
+        y, aux = moe_ffn(cfg, p["moe"], h)
+        return x + y, aux, cache
+    return x + mlp(cfg, p["mlp"], h), None, cache
 
 
 def _mamba_block(cfg, p, x, cache):
@@ -207,9 +219,10 @@ def forward(cfg, params, batch, cache=None, *, remat=True,
     # each layer keeps only its input for the backward
     recompute = remat and cache is None and torch.is_grad_enabled()
     blocks = params["blocks"]
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
 
     def attn(x, p, c=None):
-        return _attn_block(cfg, p, x, q_pos, kv_pos, c)[0]
+        return _attn_block(cfg, p, x, q_pos, kv_pos, c)[:2]
 
     def mamba(x, p, c=None):
         return _mamba_block(cfg, p, x, c)[0]
@@ -225,17 +238,18 @@ def forward(cfg, params, batch, cache=None, *, remat=True,
                 c = None if cache is None else _at(cache["mamba"], g, a)
                 x = mamba(x, p, c)
             c = None if cache is None else _at(cache["attn"], g)
-            return attn(x, params["shared_attn"], c)
+            return attn(x, params["shared_attn"], c)[0]
 
         for g, group in enumerate(_layers(blocks)):
             x = checkpointed(recompute, super_block, x, g, group, cache)
-    else:
+    else:   # the reference's scan carries (x, aux) over the layers
         for i, p in enumerate(_layers(blocks)):
             c = None if cache is None else _at(cache["layers"], i)
-            x = checkpointed(recompute, attn, x, p, c)
+            x, a = checkpointed(recompute, attn, x, p, c)
+            if a is not None:
+                aux = aux + a
 
     x = apply_norm(cfg, params["final_norm"], constrain(x, "resid"))
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     new_cache = None if cache is None else dict(cache, pos=pos0 + T)
     if return_hidden:
         return x, aux, new_cache
@@ -264,19 +278,14 @@ class Transformer:
                                   device=device)
 
 
-def count_params(params) -> int:
-    if isinstance(params, dict):
-        return sum(count_params(v) for v in params.values())
-    return params.numel()
-
-
 def active_params(cfg, params) -> int:
-    """Active parameters per token: all of them in the dense, SSM and
-    hybrid families (MoE's top-k share waits for ROADMAP A15-arch)."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE active parameters are not ported yet: ROADMAP A15-arch")
-    return count_params(params)
+    """Active parameters per token (MoE: top_k of routed experts)."""
+    total = count_params(params)
+    if not cfg.is_moe:
+        return total
+    routed = sum(params["blocks"]["moe"][w].numel()
+                 for w in ("w1", "w2", "w3"))
+    return int(total - routed + routed * cfg.top_k / cfg.num_experts)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from repro_torch.kernels.distill_loss import (distill_loss,
                                               phi_psi_plain)
 from repro_torch.kernels.flash_attention import (F32_HEAD_DIMS,
                                                  attention_plain,
+                                                 bf16_excess,
                                                  flash_attention)
 from repro_torch.kernels.mixup_kernel import mixup, mixup_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
@@ -247,7 +248,8 @@ def test_a_round_state_outlives_the_next_round(gpu):
 
 
 # bf16: the kernel rounds the running-max probabilities, the plain
-# version the normalised ones, both round the output: 2 bf16 ulps, |o|<=4
+# version the normalised ones, both round the output: 2 bf16 ulps, |o|<=4;
+# and bf16_excess <= 1, a bound per element that scales with the row
 @pytest.mark.parametrize("bh,s,d,dtype,window,atol", [
     (56, 1024, 64, torch.bfloat16, None, 2 * 2.0 ** -6),  # serve prefill
     (8, 100, 64, torch.float32, None, 2e-5),              # ragged tail
@@ -260,6 +262,14 @@ def test_a_round_state_outlives_the_next_round(gpu):
     (4, 300, 80, torch.float32, 7, 2e-5),
     (2000, 16, 16, torch.float32, None, 2e-5),  # transformer classifier
     (4, 300, 16, torch.float32, 7, 2e-5),
+    (128, 1024, 96, torch.bfloat16, None, 2 * 2.0 ** -6),  # phi3 prefill
+    (64, 8192, 120, torch.bfloat16, 4096, 2 * 2.0 ** -6),  # danube3's
+    (160, 1024, 128, torch.bfloat16, None, 2 * 2.0 ** -6),  # qwen3-14b's
+    (64, 1024, 128, torch.bfloat16, None, 2 * 2.0 ** -6),   # qwen2-moe's
+    (8, 64, 96, torch.float32, None, 2e-5),     # the width-96 variant
+    (8, 300, 96, torch.float32, 7, 2e-5),
+    (8, 160, 120, torch.float32, 128, 2e-5),    # the width-120 variant
+    (8, 300, 120, torch.float32, None, 2e-5),
 ])
 def test_flash_attention_kernel_matches_plain(gpu, bh, s, d, dtype, window,
                                               atol):
@@ -271,9 +281,26 @@ def test_flash_attention_kernel_matches_plain(gpu, bh, s, d, dtype, window,
     torch.cuda.synchronize()
     assert runtime.KERNELS["flash_attention"].launches == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (bh, s, d)
-    torch.testing.assert_close(got.float(),
-                               attention_plain(q, k, v, window).float(),
-                               rtol=0, atol=atol)
+    # the plain version a few heads at a time: (8, S, S) float32 scores
+    want = torch.cat([attention_plain(q[i:i + 8], k[i:i + 8], v[i:i + 8],
+                                      window) for i in range(0, bh, 8)])
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    if dtype == torch.bfloat16:   # and per element, scaled to its row
+        assert bf16_excess(got, want) <= 1
+
+
+@pytest.mark.parametrize("wrong", [None, 4032, 4095])
+def test_flash_attention_bf16_bound_rejects_a_wrong_window(gpu, wrong):
+    """At h2o-danube3's prefill call, the kernel run over a wrong key
+    set (keys past the window of 4096 kept; 64 or 1 key of it dropped)
+    fails the per-element bound that its right output meets."""
+    g = torch.Generator(device=gpu).manual_seed(4096)
+    q, k, v = (torch.randn(64, 8192, 120, generator=g, device=gpu)
+               .bfloat16() for _ in range(3))
+    want = torch.cat([attention_plain(q[i:i + 8], k[i:i + 8], v[i:i + 8],
+                                      4096) for i in range(0, 64, 8)])
+    assert bf16_excess(flash_attention(q, k, v, window=4096), want) <= 1
+    assert bf16_excess(flash_attention(q, k, v, window=wrong), want) > 1
 
 
 # bfloat16 runs on the tensor-core kernel (128-query, 128-key tiles):
@@ -299,6 +326,12 @@ def test_flash_attention_kernel_matches_plain(gpu, bh, s, d, dtype, window,
     (2, 1, 80, 80, None),
     (4, 256, 80, 64, None),
     (4, 256, 64, 80, None),
+    (3, 129, 96, 96, None),       # head dims 96 and 120: the same tile
+    (4, 512, 96, 96, 128),
+    (3, 129, 120, 120, 64),
+    (4, 300, 120, 120, None),
+    (2, 1, 120, 120, None),
+    (4, 256, 120, 64, None),
 ])
 def test_flash_attention_bf16_kernel_matches_plain(gpu, bh, s, d, dv,
                                                    window):
@@ -311,9 +344,10 @@ def test_flash_attention_bf16_kernel_matches_plain(gpu, bh, s, d, dv,
     torch.cuda.synchronize()
     assert runtime.KERNELS["flash_attention"].launches == before + 1
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (bh, s, dv)
-    torch.testing.assert_close(got.float(),
-                               attention_plain(q, k, v, window).float(),
-                               rtol=0, atol=2 * 2.0 ** -6)
+    want = attention_plain(q, k, v, window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2 * 2.0 ** -6)
+    assert bf16_excess(got, want) <= 1
 
 
 def test_flash_attention_refuses_misaligned_bf16(gpu):
@@ -459,7 +493,7 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(gpu):
         ssd_scan(xdt, B, C, dA.cpu(), 32)
 
 
-@pytest.mark.parametrize("d", [16, 96, 120])
+@pytest.mark.parametrize("d", [16, 48, 112])
 def test_flash_attention_refuses_head_dims_it_is_not_built_for(gpu, d):
     """Head dims outside HEAD_DIMS raise on the card in bfloat16, and
     outside F32_HEAD_DIMS (HEAD_DIMS and 16, the transformer
@@ -496,6 +530,50 @@ def test_hybrid_width80_on_gpu_matches_cpu(gpu):
     got = serve(cfg, 2, 160, 6, device=gpu)
     assert runtime.launch_counts()["flash_attention"] == 2
     assert runtime.launch_counts()["ssd_scan"] == 4
+    assert torch.equal(got.cpu(), serve(cfg, 2, 160, 6, device="cpu"))
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 160)))
+    logits = []
+    for dev in (gpu, "cpu"):
+        with torch.inference_mode():
+            params = init_params(cfg, rng.PRNGKey(0), device=dev)
+            logits.append(make_prefill_step(cfg, 166)(
+                params, {"tokens": toks.to(dev)})[0].cpu())
+    torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,prompt", [("qwen2-moe-a2.7b", 64),
+                                         ("qwen3-14b", 64),
+                                         ("h2o-danube-3-4b", 160)])
+def test_family_serve_smoke_on_gpu_matches_cpu(gpu, arch, prompt):
+    """The MoE, qk-norm and windowed smoke configs: B4 once a layer on
+    the card, the same greedy tokens as the CPU's."""
+    runtime.reset_launch_counts()
+    got = serve(arch, 2, prompt, 6, smoke=True, device=gpu)
+    assert runtime.launch_counts()["flash_attention"] == 2   # two layers
+    want = serve(arch, 2, prompt, 6, smoke=True, device="cpu")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["width96", "width120", "moe_routing"])
+def test_family_width_variants_on_gpu_match_cpu(gpu, case):
+    """phi3's width-96 and danube3's width-120 smoke variants (window
+    128, prompt 160): the prefill goes through flash attention's float32
+    route at d 96 and d 120; and qwen2-moe's published routing (60
+    experts, top 4, capacity factor 1.25: a group of 320 tokens, 28
+    places an expert, drops).  The same greedy tokens as the CPU's,
+    last-token logits within 1e-4."""
+    from repro_torch.configs.h2o_danube3_4b import width120_smoke
+    from repro_torch.configs.phi3_mini_3_8b import width96_smoke
+    from repro_torch.configs.qwen2_moe_a2_7b import routing_smoke
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import init_params
+
+    cfg = {"width96": width96_smoke, "width120": width120_smoke,
+           "moe_routing": routing_smoke}[case]()
+    runtime.reset_launch_counts()
+    got = serve(cfg, 2, 160, 6, device=gpu)
+    assert runtime.launch_counts()["flash_attention"] == 2
     assert torch.equal(got.cpu(), serve(cfg, 2, 160, 6, device="cpu"))
     toks = torch.tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 160)))

@@ -10,9 +10,11 @@ output divided by max(l, 1e-30).  The card test
 not in the package, meets the same tolerance against ``attention_plain``
 and against the reference's Pallas kernel (interpret mode, 128-blocks),
 which shows where no card is that the tolerance is the algorithm's own.
-A head dim of 80 runs in the kernel's 128-column tile, its columns 80-127
-loaded as zeros and the output's dropped, with the scale of d = 80; the
-emulation pads the same way.
+It also meets the per-element bound ``bf16_excess`` <= 1 that the card
+tests add, and a planted fault in the window's first key tile does not.
+Head dims 80, 96 and 120 run in the kernel's 128-column tile, their
+columns d-127 loaded as zeros and the output's dropped, with the scale
+of d; the emulation pads the same way.
 """
 import math
 
@@ -21,18 +23,22 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import attention_plain
+from repro_torch.kernels.flash_attention import (attention_plain,
+                                                 bf16_excess)
 from test_torch_reference import load_reference
 
 BQ = BK = 128           # the kernel's query and key tiles
 ATOL = 2 * 2.0 ** -6    # tests/test_torch_cuda.py, the bfloat16 cases
-TILE = {32: 32, 64: 64, 80: 128, 128: 128}   # head dim -> tile columns
+TILE = {32: 32, 64: 64, 80: 128, 96: 128, 120: 128,
+        128: 128}   # head dim -> tile columns
 
 
-def emulate(q, k, v, window=None):
+def emulate(q, k, v, window=None, late_skip=0):
     """q, k: (BH, S, d), v: (BH, S, dv), bfloat16 -> (BH, S, dv) bfloat16,
     by the kernel's tiles and online softmax, in float32, with q, k and v
-    zero-padded to the tile's columns."""
+    zero-padded to the tile's columns.  ``late_skip`` plants a fault: the
+    query tiles at or past the window start that many key tiles late
+    (t_first + late_skip)."""
     bh, s, d = q.shape
     dv = v.shape[-1]
 
@@ -48,6 +54,8 @@ def emulate(q, k, v, window=None):
         l = torch.zeros(bh, len(rows))
         acc = torch.zeros(bh, len(rows), vf.shape[-1])
         first = max(0, q0 - window + 1) // BK if window else 0
+        if window and q0 >= window:
+            first += late_skip
         for t in range(first, int(rows[-1]) // BK + 1):
             keys = torch.arange(t * BK, min(t * BK + BK, s))
             sc = torch.einsum("bqd,bkd->bqk", qf[:, rows], kf[:, keys])
@@ -75,7 +83,7 @@ def _inputs(bh, s, d, seed):
 
 @pytest.mark.parametrize("s", [100, 256])
 @pytest.mark.parametrize("window", [None, 64])
-@pytest.mark.parametrize("d", [32, 64, 80, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 120, 128])
 def test_tiled_emulation_matches_attention_plain(d, window, s):
     """S 100 ends inside the first key tile; S 256 crosses two."""
     q, k, v = (torch.tensor(x).bfloat16() for x in _inputs(3, s, d, s + d))
@@ -83,10 +91,11 @@ def test_tiled_emulation_matches_attention_plain(d, window, s):
     want = attention_plain(q, k, v, window)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL)
+    assert bf16_excess(got, want) <= 1
 
 
 @pytest.mark.parametrize("window", [None, 64])
-@pytest.mark.parametrize("d", [32, 64, 80, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 120, 128])
 def test_tiled_emulation_matches_pallas(d, window):
     """At S 256, which the Pallas wrapper's 128-blocks divide."""
     ref = load_reference()
@@ -98,3 +107,21 @@ def test_tiled_emulation_matches_pallas(d, window):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=0,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("fault", [None, "late_t_first", "no_window",
+                                   "window_minus_1"])
+def test_per_element_bound_rejects_planted_faults(fault):
+    """At S 2048 and a window of 1024 (h2o-danube3's call halved, d 120):
+    the emulation meets ``bf16_excess`` <= 1 against ``attention_plain``;
+    the late query tiles skipping their first key tile, the window left
+    out, or a window one key short, each fail it."""
+    q, k, v = (torch.tensor(x).bfloat16()
+               for x in _inputs(2, 2048, 120, 1024))
+    want = attention_plain(q, k, v, 1024)
+    got = {None: lambda: emulate(q, k, v, 1024),
+           "late_t_first": lambda: emulate(q, k, v, 1024, late_skip=1),
+           "no_window": lambda: emulate(q, k, v, None),
+           "window_minus_1": lambda: emulate(q, k, v, 1023)}[fault]()
+    x = bf16_excess(got, want)
+    assert x <= 1 if fault is None else x > 1, x

@@ -88,6 +88,8 @@ def test_the_walk_sees_the_package():
             "src/repro_torch/optim/__init__.py",
             "src/repro_torch/launch/train.py",
             "src/repro_torch/launch/steps.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/configs/qwen2_moe_a2_7b.py",
             "tools/round_ab.py"} <= names
     # the import walk resolves relative imports: the pipeline's own
     # import of the channel model is seen
@@ -129,6 +131,11 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         init_cache(ssm, 2, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve("mamba2-370m", 2, 8, 2)
+    for arch in ("qwen3-14b", "h2o-danube-3-4b", "qwen2-moe-a2.7b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve(arch, 2, 8, 2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_cache(get_config(arch + "-smoke"), 2, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FederatedService(CNN(), FederatedConfig(num_devices=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):

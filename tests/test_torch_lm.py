@@ -67,7 +67,8 @@ def _ref_params(cfg, seed=0):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-370m", "zamba2-2.7b",
-                                  "paper-cnn"])
+                                  "paper-cnn", "qwen3-14b", "phi3-mini-3.8b",
+                                  "h2o-danube-3-4b", "qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_arch_config_fields_match_reference(name, smoke):
     ref = load_reference()
@@ -349,13 +350,15 @@ def test_synthetic_tokens_bit_exact(n, T, vocab):
 
 
 @pytest.mark.parametrize("change", [
-    dict(attn_type="mla"), dict(family="moe"),
+    # MoE and qk-norm run since A15-arch part 1; with MLA or the int8
+    # cache they still wait
+    dict(attn_type="mla"), dict(family="moe", attn_type="mla"),
     dict(family="hybrid", kv_quant=True),
     dict(family="vlm"), dict(family="audio"),
     dict(kv_quant=True), dict(cross_attention=True), dict(mrope=True),
     # embeddings in and learned positions run since A15-train; with
     # M-RoPE (vlm) or cross-attention (audio) they still wait
-    dict(embed_input=True, mrope=True), dict(qk_norm=True),
+    dict(embed_input=True, mrope=True), dict(qk_norm=True, kv_quant=True),
     dict(pos_emb="learned", cross_attention=True),
 ])
 def test_options_outside_the_slice_raise(change):
@@ -374,7 +377,8 @@ def test_forward_without_a_cache_raises():
         cfg, params, {"tokens": torch.zeros(1, 3, dtype=torch.long)})
     assert logits.shape == (1, 3, cfg.vocab_size) and cache is None
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        transformer.forward(dataclasses.replace(cfg, qk_norm=True), params,
+        transformer.forward(dataclasses.replace(cfg, cross_attention=True),
+                            params,
                             {"tokens": torch.zeros(1, 3, dtype=torch.long)})
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         rope.mrope_cos_sin(torch.zeros(1, 3, 3), 32, 1e4)

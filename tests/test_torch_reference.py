@@ -1,10 +1,10 @@
 """The reference loader for the port's parity tests.
 
 ``load_reference()`` imports the JAX package's round loop, models and
-their registry, data, sampling, codecs and privacy, LM stack (dense and
-Mamba2), serve and train drivers, optimizers, kernels, round program,
-checkpoint, service and sweep engine for the ``tests/test_torch_*.py``
-files.  Under the installed jax ``repro.models.transformer`` cannot be
+their registry, data, sampling, codecs and privacy, LM stack (dense,
+MoE and Mamba2), serve and train entry points, optimizers, kernels,
+round program, checkpoint, service and sweep engine for the
+``tests/test_torch_*.py`` files.  Under the installed jax ``repro.models.transformer`` cannot be
 imported: its guard runs
 ``_obar_p not in _batching.primitive_batchers`` and jax 0.9's
 ``PrimitiveBatchersProxy`` has no ``__contains__`` (ROADMAP C1).  The
@@ -55,6 +55,7 @@ _MODULES = {
     "configs": "repro.configs",
     "transformer": "repro.models.transformer",
     "attention": "repro.models.attention",
+    "moe": "repro.models.moe",
     "kvcache": "repro.models.kvcache",
     "layers": "repro.models.layers",
     "rope": "repro.models.rope",

@@ -117,9 +117,10 @@ def test_facade_matches_reference():
                                rtol=0, atol=LOGIT_ATOL)
     _assert_trees_close(m.init(rng.PRNGKey(0), device="cpu"),
                         jax.tree.map(np.asarray, pj), 4e-7)
-    with pytest.raises(NotImplementedError, match="A15-arch"):
-        transformer.active_params(_cfg(family="moe", num_experts=4,
-                                       top_k=2), p)
+    moe_cfg = _cfg("qwen2-moe-a2.7b")
+    pm, pt = _params(moe_cfg)
+    assert transformer.active_params(moe_cfg, pt) == \
+        load_reference().transformer.active_params(_ref_cfg(moe_cfg), pm)
 
 
 CHUNK_CFG = dict(num_layers=2, d_model=128, num_heads=2, num_kv_heads=1,
