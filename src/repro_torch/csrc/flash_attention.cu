@@ -63,6 +63,16 @@
 //     window (t_first): at h2o-danube3's window of 4096 and S 8192 a
 //     128-row query tile reads 33 key tiles, 1.03x the keys its rows
 //     attend, not the 64 of the causal triangle.
+//   - MLA (deepseek-v2) attends with q.k 192 wide (nope 128 + rope 64)
+//     and values 128 wide.  Its prefill calls this at (BH 512, S 1024,
+//     d 192, dv 128): 671 MB (0.200 ms at 3.35 TB/s) and 172 GFLOP on
+//     the causal half (0.174 ms at 989 TFLOP/s), so bytes bound it.
+//     (192, 128) is an instantiation of its own: Q and K in three
+//     64-column chunks (128-byte swizzle), 12 k-steps a Q K^T tile, the
+//     serial dv-128 schedule.  A separate O tile would leave room for one
+//     80 KB K/V stage, no prefetch; O is staged in Q's bytes instead
+//     (Layout), which leaves two.  Every head reads the one rope key of a
+//     position, copied into each head's K by the caller.
 // * float32: the CUDA-core kernel (first namespace below, unchanged from
 //   the first port): 64 x 64 tiles in f32 shared memory, 256 threads, FMA
 //   on the CUDA cores.  It stays for float32 because a TF32 tensor-core
@@ -73,7 +83,8 @@
 //   It also takes head dim 16 (the federated transformer classifier's,
 //   whose no-grad forward runs here): one accumulator column a thread;
 //   and 96 and 120 (phi3-mini, h2o-danube3; their float32 smoke
-//   variants' card-vs-CPU parity), with dv == d.
+//   variants' card-vs-CPU parity), with dv == d; and MLA's (48, 32) and
+//   (192, 128) (the deepseek-v2 smoke config and its width-192 variant).
 //
 // The tensor maps are encoded on the host in flash_attention_launch with
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint (the
@@ -326,7 +337,9 @@ int launch_dv(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-// Head dims 96 (phi3-mini) and 120 (h2o-danube3) take dv == d only.
+// Head dims 96 (phi3-mini) and 120 (h2o-danube3) take dv == d only; MLA's
+// (deepseek-v2) q.k widths take one value width each: d 48 (its smoke
+// config: nope 32 + rope 16) dv 32, and d 192 (nope 128 + rope 64) dv 128.
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o,
              int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
@@ -334,6 +347,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
   switch (d) {
     case 16: return launch_dv<T, 16>(q, k, v, o, bh, s, dv, window, st);
     case 32: return launch_dv<T, 32>(q, k, v, o, bh, s, dv, window, st);
+    case 48:
+      if (dv == 32) return launch_t<T, 48, 32>(q, k, v, o, bh, s, window, st);
+      break;
     case 64: return launch_dv<T, 64>(q, k, v, o, bh, s, dv, window, st);
     case 80: return launch_dv<T, 80>(q, k, v, o, bh, s, dv, window, st);
     case 96:
@@ -344,6 +360,10 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
         return launch_t<T, 120, 120>(q, k, v, o, bh, s, window, st);
       break;
     case 128: return launch_dv<T, 128>(q, k, v, o, bh, s, dv, window, st);
+    case 192:
+      if (dv == 128)
+        return launch_t<T, 192, 128>(q, k, v, o, bh, s, window, st);
+      break;
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -372,6 +392,11 @@ __host__ __device__ constexpr int chunk_cols(int width) {
 }
 
 // Shared memory: Q, the O staging tile, the K/V ring, the mbarriers.
+// Where a separate O tile would leave fewer than two K/V stages (d 192,
+// dv 128: Q 48 KB + O 32 KB + one 80 KB stage), O is staged in Q's
+// bytes instead: a warpgroup writes O only after its last product has
+// read Q, and with 64-column chunks and dv <= d its O rows lie inside
+// its own Q rows, which the other warpgroup never reads.
 template <int D, int DV>
 struct Layout {
   static constexpr int CQ = chunk_cols(D), CV = chunk_cols(DV);
@@ -381,11 +406,17 @@ struct Layout {
   static constexpr int V_BYTES = BK * DV * 2;
   // 232448 bytes: the most dynamic shared memory a CTA may have on
   // sm_90; 1024 of alignment slack and room for the barriers
+  static constexpr int ROOM = 232448 - Q_BYTES - 1024 - 8 * 64;
+  static constexpr bool O_IN_Q = (ROOM - O_BYTES) / (K_BYTES + V_BYTES) < 2;
   static constexpr int FIT =
-      (232448 - Q_BYTES - O_BYTES - 1024 - 8 * 64) / (K_BYTES + V_BYTES);
+      (ROOM - (O_IN_Q ? 0 : O_BYTES)) / (K_BYTES + V_BYTES);
   static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
-  static constexpr int O_OFF = Q_BYTES;  // every offset a multiple of 1024
-  static constexpr int K_OFF = O_OFF + O_BYTES;
+  static_assert(STAGES >= 2, "the K/V ring needs two stages to prefetch");
+  static_assert(!O_IN_Q || (CQ == 64 && CV == 64 && DV <= D),
+                "O in Q's bytes needs each warpgroup's O rows in its Q rows");
+  // every offset a multiple of 1024
+  static constexpr int O_OFF = O_IN_Q ? 0 : Q_BYTES;
+  static constexpr int K_OFF = O_IN_Q ? Q_BYTES : O_OFF + O_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * V_BYTES;
   // barriers: q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
@@ -928,6 +959,9 @@ int launch_dv(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
+// MLA's (192, 128) (deepseek-v2) is its own instantiation: Q and K in
+// three 64-column chunks, 12 k-steps of Q K^T, 384-byte tensor-map rows
+// (a multiple of 16, as TMA requires), O staged in Q's bytes (Layout).
 int launch_d(const void* q, const void* k, const void* v, void* o,
              int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
              cudaStream_t st) {
@@ -940,6 +974,10 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
     case 96:
     case 120:
     case 128: return launch_dv<128>(q, k, v, o, bh, s, d, dv, window, st);
+    case 192:
+      if (dv == 128)
+        return launch_t<192, 128>(q, k, v, o, bh, s, d, dv, window, st);
+      break;
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -972,6 +1010,10 @@ extern "C" int64_t flash_attention_layout(int64_t d, int64_t dv,
     case 96:
     case 120:
     case 128: return tc::layout_dv<128>(dv, stages);
+    case 192:
+      if (dv != 128) return 0;
+      *stages = tc::Layout<192, 128>::STAGES;
+      return tc::Layout<192, 128>::SMEM;
   }
   return 0;
 }

@@ -12,27 +12,35 @@ wrapper, any S works: the kernel masks the tail itself.
 On the GPU the dtype picks the route inside the same entry point:
 bfloat16 runs on the tensor cores (wgmma, K/V tiles by TMA), float32 on
 the CUDA cores in full float32 (a TF32 product would not keep the
-float32 smoke configs' logits within ~1e-6 of the CPU's).  The head dims
-are :data:`HEAD_DIMS`, and on the CUDA cores also 16 (the transformer
-classifier's, :data:`F32_HEAD_DIMS`); on the tensor cores a dim of 80
-(zamba2), 96 (phi3-mini) or 120 (h2o-danube3) runs in the 128-column
-tile with its columns d-127 loaded as zeros.  On the CUDA cores 96 and
-120 take dv == d only (:data:`F32_SQUARE_DIMS`).  The kernel is
-forward-only: a CUDA input that requires grad under grad mode raises
-ValueError (``runtime.refuse_grad``).
+float32 smoke configs' logits within ~1e-6 of the CPU's).  The (d, dv)
+pairs each route is built for are :data:`BUILT`; any other pair raises
+ValueError before a launch.  On the tensor cores a dim of 80 (zamba2),
+96 (phi3-mini) or 120 (h2o-danube3) runs in the 128-column tile with its
+columns d-127 loaded as zeros, and MLA's (192, 128) (deepseek-v2) has an
+instantiation of its own.  On the CUDA cores 96 and 120 take dv == d
+only, 16 is the transformer classifier's, and (48, 32) and (192, 128)
+are MLA's smoke widths.  The kernel is forward-only: a CUDA input that
+requires grad under grad mode raises ValueError (``runtime.refuse_grad``).
 """
 from __future__ import annotations
 
 import ctypes
+from itertools import product
 
 import torch
 
 from .runtime import CudaKernel, on_cuda, refuse_grad, require
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 80, 96, 120, 128)
-F32_HEAD_DIMS = (16,) + HEAD_DIMS
-F32_SQUARE_DIMS = (96, 120)   # float32: built for dv == d only
+_TILED = (32, 64, 80, 96, 120, 128)   # the tensor-core tiles' head dims
+# (d, dv) pairs built for each dtype, as csrc/flash_attention.cu's
+# launch_d dispatches them (flash_attention_layout reports the bfloat16
+# ones)
+BUILT = {
+    torch.bfloat16: frozenset(product(_TILED, _TILED)) | {(192, 128)},
+    torch.float32: frozenset(product((16, 32, 64, 80, 128), repeat=2))
+    | {(96, 96), (120, 120), (48, 32), (192, 128)},
+}
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_launch",
@@ -74,9 +82,8 @@ def bf16_excess(got, want) -> float:
 
 
 def flash_attention(q, k, v, window=None):
-    """q, k: (BH, S, d); v: (BH, S, dv); float32 or bfloat16; d and dv
-    in :data:`HEAD_DIMS` on the GPU (:data:`F32_HEAD_DIMS` in float32).
-    window: None or an int >= 1."""
+    """q, k: (BH, S, d); v: (BH, S, dv); float32 or bfloat16; (d, dv) in
+    :data:`BUILT` for the dtype on the GPU.  window: None or an int >= 1."""
     require(q.dim() == 3 and k.shape == q.shape and v.dim() == 3
             and v.shape[:2] == q.shape[:2],
             f"flash_attention takes (BH, S, d) q/k and (BH, S, dv) v, got "
@@ -91,14 +98,9 @@ def flash_attention(q, k, v, window=None):
             f"{q.dtype}/{k.dtype}/{v.dtype}")
     bh, s, d = q.shape
     dv = v.shape[-1]
-    dims = F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
-    require(d in dims and dv in dims,
-            f"flash_attention kernel takes head dims {dims} in {q.dtype}, "
-            f"got d={d}, dv={dv}")
-    require(q.dtype != torch.float32 or d == dv
-            or not {d, dv} & set(F32_SQUARE_DIMS),
-            f"flash_attention float32 kernel takes head dims "
-            f"{F32_SQUARE_DIMS} with dv == d only, got d={d}, dv={dv}")
+    require((d, dv) in BUILT[q.dtype],
+            f"flash_attention kernel is not built for head dims (d, dv) = "
+            f"({d}, {dv}) in {q.dtype}: it takes {sorted(BUILT[q.dtype])}")
     require(all(t.is_contiguous() for t in (q, k, v)),
             "flash_attention kernel operands must be contiguous")
     require(q.dtype != torch.bfloat16

@@ -1,8 +1,10 @@
 """Batched LM serving driver: prefill a batch of prompts into a cache,
 then decode greedily, on the dense, MoE, SSM and hybrid architectures
 (qwen2-0.5b, qwen3-14b, phi3-mini-3.8b, h2o-danube-3-4b,
-qwen2-moe-a2.7b, mamba2-370m, zamba2-2.7b; the smoke preset by default,
-``--full`` for the published widths).
+qwen2-moe-a2.7b, deepseek-v2-236b, mamba2-370m, zamba2-2.7b; the smoke
+preset by default, ``--full`` for the published widths; deepseek-v2's 60
+layers do not fit one 80 GB card: on the GPU, serve a config of it with
+its depth cut, ``dataclasses.replace(CONFIG, num_layers=6)``).
 
 Usage (on the GPU; ``--device cpu`` runs the plain kernel versions):
 
@@ -16,6 +18,8 @@ Usage (on the GPU; ``--device cpu`` runs the plain kernel versions):
       --arch h2o-danube-3-4b --full --batch 2 --prompt-len 8192
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen2-moe-a2.7b [--full]
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-236b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       [--full]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\

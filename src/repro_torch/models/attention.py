@@ -1,5 +1,5 @@
 """Grouped-query attention (GQA; optional sliding window, QKV bias and
-qk-norm).
+qk-norm) and DeepSeek-V2's multi-head latent attention (MLA).
 
 All masking is position-driven, as in the reference: query positions
 ``q_pos`` (B, T) and key positions ``kv_pos`` (B, S), with -1 marking
@@ -19,9 +19,17 @@ is plain jnp.  Positions are learned (added to the embeddings by the
 caller) or RoPE.
 
 qk-norm (qwen3) RMS-normalises each head of q and k over its head dim
-after the projections and before RoPE, as the reference does.  MLA,
-cross-attention, M-RoPE and the int8 cache wait for the families that
-use them (ROADMAP A15-arch).
+after the projections and before RoPE, as the reference does.
+
+MLA (:func:`mla_attention`) keeps a latent cache: the normed 512-wide
+``ckv`` and the one 64-wide rope key ``kr`` a position, shared by all
+heads.  The prompt (and the no-cache forward) builds per-head keys
+``[ckv @ wk_b, rope(kr)]`` and values ``ckv @ wv_b`` and takes the same
+causal path as GQA (flash attention at (d, dv) = (nope + rope, v_head):
+(192, 128) at the published widths).  Decode attends in the latent
+space (the absorbed path): ``wk_b`` folded into the query, ``wv_b``
+applied after the softmax.  Cross-attention, M-RoPE and the int8 cache
+wait for the families that use them (ROADMAP A15-arch).
 """
 from __future__ import annotations
 
@@ -46,7 +54,8 @@ KV_CHUNK = 1024
 
 def check_supported(cfg) -> None:
     """Raise for every attention option this slice does not run."""
-    todo = {"attn_type": cfg.attn_type != "gqa", "mrope": cfg.mrope,
+    todo = {"attn_type": cfg.attn_type not in ("gqa", "mla"),
+            "mrope": cfg.mrope,
             "cross_attention": cfg.cross_attention,
             "kv_quant": cfg.kv_quant,
             "pos_emb": cfg.pos_emb not in ("rope", "learned")}
@@ -66,6 +75,18 @@ def init_attn(cfg, key):
     dt = dtype_of(cfg)
     D, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ks = rng.split(key, 10).unbind(0)
+    if cfg.attn_type == "mla":
+        nope, rp, lora = hd, cfg.rope_head_dim, cfg.kv_lora_rank
+        ones = dict(dtype=dt, device=key.device)
+        return {"wq_a": dense_init(ks[0], D, cfg.q_lora_rank, dt),
+                "q_norm": torch.ones((cfg.q_lora_rank,), **ones),
+                "wq_b": dense_init(ks[1], cfg.q_lora_rank, H * (nope + rp),
+                                   dt),
+                "wkv_a": dense_init(ks[2], D, lora + rp, dt),
+                "kv_norm": torch.ones((lora,), **ones),
+                "wk_b": dense_init(ks[3], lora, H * nope, dt),
+                "wv_b": dense_init(ks[4], lora, H * cfg.v_head, dt),
+                "wo": dense_init(ks[5], H * cfg.v_head, D, dt)}
     p = {"wq": dense_init(ks[0], D, H * hd, dt),
          "wk": dense_init(ks[1], D, Hkv * hd, dt),
          "wv": dense_init(ks[2], D, Hkv * hd, dt),
@@ -285,3 +306,73 @@ def _tail_cache(k, Sc: int):
     tail = k[:, S - Sc:]
     # position p lives at slot p % Sc; tail index i is position S-Sc+i
     return torch.roll(tail, shifts=(S - Sc) % Sc, dims=1)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_attention(cfg, p, x, q_pos, kv_pos, cache=None):
+    """Multi-head latent attention.  x: (B,T,D); cache: a layer's
+    ``{"ckv": (B,Sc,kv_lora), "kr": (B,Sc,rope_head_dim)}`` (a linear
+    cache) or None.  Returns (out, cache), the cache written in place as
+    in :func:`gqa_attention`.
+
+    T > 1 or no cache: per-head K/V from the latent and causal attention
+    over the sequence (the prefill writes the latent cache from it).
+    T == 1 with a cache: the absorbed decode, scores and values in the
+    latent space, with the reference's cast points: ``q_lat`` in the
+    parameters' dtype, float32 scores, the probabilities cast to the
+    cache's dtype before the product with it."""
+    check_supported(cfg)
+    B, T, D = x.shape
+    H = cfg.num_heads
+    nope, rp, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head
+    lora = cfg.kv_lora_rank
+
+    cq = rms_norm_headwise(x @ p["wq_a"], p["q_norm"])
+    q = (cq @ p["wq_b"]).reshape(B, T, H, nope + rp)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv_full = x @ p["wkv_a"]                          # (B,T,lora+rp)
+    ckv = rms_norm_headwise(ckv_full[..., :lora], p["kv_norm"])
+    cos, sin = rope_cos_sin(q_pos, rp, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(ckv_full[..., None, lora:], cos, sin)   # (B,T,1,rp)
+    # the scale of q.k's width, nope + rp: what flash attention takes
+    # from q's last dim
+    scale = 1.0 / math.sqrt(nope + rp)
+
+    if cache is None or T > 1:
+        k_nope = (ckv @ p["wk_b"]).reshape(B, T, H, nope)
+        v = constrain((ckv @ p["wv_b"]).reshape(B, T, H, dv), "heads")
+        k = constrain(torch.cat([k_nope, k_rope.expand(B, T, H, rp)], -1),
+                      "heads")
+        qf = constrain(torch.cat([q_nope, q_rope], -1), "heads")
+        if records_grad(qf, k, v):
+            o = masked_attention(qf, k, v, q_pos, q_pos, scale=scale,
+                                 window=cfg.sliding_window, causal=True)
+        else:
+            o = prefill_attention(qf, k, v, window=cfg.sliding_window)
+        if cache is not None:   # prefill: the latent cache
+            Sc = cache["ckv"].shape[1]
+            if Sc < T:
+                raise ValueError(f"MLA prefill of {T} tokens is longer "
+                                 f"than the linear cache of {Sc}")
+            cache["ckv"].copy_(_tail_cache(ckv, Sc))
+            cache["kr"].copy_(_tail_cache(k_rope[:, :, 0], Sc))
+        return o.reshape(B, T, H * dv) @ p["wo"], cache
+
+    # ---- absorbed decode: this token's latent into its slot ----
+    c_ckv = _scatter_cache(cache["ckv"], ckv, q_pos)   # linear cache
+    c_kr = _scatter_cache(cache["kr"], k_rope[:, :, 0], q_pos)
+    wk_b = p["wk_b"].reshape(lora, H, nope)
+    wv_b = p["wv_b"].reshape(lora, H, dv)
+    q_lat = torch.einsum("bthn,lhn->bthl", q_nope, wk_b)    # (B,T,H,lora)
+    s_lat = torch.einsum("bthl,bsl->bhts", q_lat.float(), c_ckv.float())
+    s_rope = torch.einsum("bthr,bsr->bhts", q_rope.float(), c_kr.float())
+    bias = _mask_bias(q_pos, kv_pos, cfg.sliding_window, True)
+    s = (s_lat + s_rope) * scale + bias[:, None]
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhts,bsl->bthl", pr.to(c_ckv.dtype), c_ckv)
+    o = torch.einsum("bthl,lhv->bthv", o_lat, wv_b)
+    return o.reshape(B, T, H * dv) @ p["wo"], cache

@@ -4,6 +4,8 @@ Layout, as in the reference, every per-layer leaf stacked on a leading
 layer axis (the hybrid's on its super-block axes):
 
   dense, moe : {"pos": int, "layers": {"k", "v": (L, B, Sc, Hkv, hd)}}
+  mla        : {"pos": int, "layers": {"ckv": (L, B, Sc, kv_lora),
+                                       "kr": (L, B, Sc, rope_head_dim)}}
   ssm        : {"pos": int, "layers": {"state": (L, B, H, N, P) float32,
                                        "conv": (L, B, k-1, Cd)}}
   hybrid     : {"pos": int, "mamba": {"state": (G, A, B, H, N, P) float32,
@@ -17,8 +19,10 @@ buffer.  ``pos`` (the next position to write) is a Python int here; key
 positions are derived from it (:func:`kv_positions`), so empty and ring
 slots need no stored metadata.
 
-The MLA and audio caches and the int8 ``kv_quant`` cache wait for their
-families (ROADMAP A15).
+The MLA cache (deepseek-v2, a moe-family config with ``attn_type
+"mla"``) holds the latent and the one rope key a position, for all
+heads; it is linear (no window).  The audio cache and the int8
+``kv_quant`` cache wait for their families (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ def _check(cfg):
     if cfg.family == "ssm":
         return
     if cfg.family not in ("dense", "moe", "hybrid") \
-            or cfg.attn_type != "gqa":
+            or cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
             f"cache of family {cfg.family!r} / attention {cfg.attn_type!r}"
             " is not ported yet: ROADMAP A15")
@@ -56,8 +60,11 @@ def _mamba_shapes(cfg, lead, batch: int):
 
 
 def _kv_shapes(cfg, lead, batch: int, seq_len: int):
-    kv = lead + (batch, cache_len(cfg, seq_len), cfg.num_kv_heads,
-                 cfg.head_dim)
+    rows = lead + (batch, cache_len(cfg, seq_len))
+    if cfg.attn_type == "mla":
+        return {"ckv": (rows + (cfg.kv_lora_rank,), dtype_of(cfg)),
+                "kr": (rows + (cfg.rope_head_dim,), dtype_of(cfg))}
+    kv = rows + (cfg.num_kv_heads, cfg.head_dim)
     return {"k": (kv, dtype_of(cfg)), "v": (kv, dtype_of(cfg))}
 
 

@@ -17,10 +17,13 @@ The hybrid family (zamba2) stacks its mamba blocks on two axes
 mamba layers, each followed by the one ``shared_attn`` block (the same
 weights every super-block, a cache of its own in each).
 
-The MoE family (qwen2-moe) is the dense block with ``moe`` in place of
-``mlp`` (:mod:`repro_torch.models.moe`); each layer's router loss adds
-into the float32 ``aux`` that :func:`forward` returns.  What waits for
-later slices (ROADMAP A15-arch): the MLA, vlm and audio families.
+The MoE family (qwen2-moe, deepseek-v2) is the dense block with ``moe``
+in place of ``mlp`` (:mod:`repro_torch.models.moe`); each layer's router
+loss adds into the float32 ``aux`` that :func:`forward` returns.  A
+block whose config has ``attn_type "mla"`` (deepseek-v2) attends through
+:func:`~repro_torch.models.attention.mla_attention` and keeps the latent
+cache.  What waits for later slices (ROADMAP A15-arch): the vlm and
+audio families.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ import torch
 from .. import rng
 from ..device import resolve_device
 from . import kvcache
-from .attention import check_supported, gqa_attention, init_attn
+from .attention import (check_supported, gqa_attention, init_attn,
+                        mla_attention)
 from .layers import (apply_norm, dense_init, dtype_of, embed_init, init_norm,
                      checkpointed)
 from .mamba2 import init_mamba, mamba2_forward
@@ -106,6 +110,7 @@ def init_params(cfg, key, device=None):
         if blocks is None:
             blocks = tree_map(lambda t: t.new_empty((n,) + t.shape), layer)
         tree_map(lambda dst, src: dst[i].copy_(src), blocks, layer)
+        del layer   # the next draw does not hold this layer beside it
     if hybrid:
         blocks = tree_map(lambda t: t.view((G, A) + t.shape[1:]), blocks)
         p["shared_attn"] = _init_block(cfg, ks[4])   # one shared block
@@ -153,7 +158,8 @@ def _attn_block(cfg, p, x, q_pos, kv_pos, cache):
     """Returns (x, the layer's router loss or None, cache)."""
     x = constrain(x, "resid")
     h = apply_norm(cfg, p["ln1"], x)
-    a, cache = gqa_attention(cfg, p["attn"], h, q_pos, kv_pos, cache)
+    attend = mla_attention if cfg.attn_type == "mla" else gqa_attention
+    a, cache = attend(cfg, p["attn"], h, q_pos, kv_pos, cache)
     x = x + a
     h = apply_norm(cfg, p["ln2"], x)
     if cfg.is_moe:
@@ -212,7 +218,8 @@ def forward(cfg, params, batch, cache=None, *, remat=True,
     kv_pos = q_pos   # train / prefill: attention over the live keys
     if cfg.family != "ssm" and cache is not None and T == 1:
         Sc = (cache["attn"] if cfg.family == "hybrid"
-              else cache["layers"])["k"].shape[2]
+              else cache["layers"])[
+            "ckv" if cfg.attn_type == "mla" else "k"].shape[2]
         kv_pos = kvcache.kv_positions(cfg, pos0, Sc, B, dev)
     if cfg.pos_emb == "learned":
         x = x + params["pos_embed"][q_pos[0]][None]

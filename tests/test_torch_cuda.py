@@ -29,7 +29,7 @@ from repro_torch.kernels.distill_loss import (distill_loss,
                                               distill_step_plain,
                                               phi_psi_bwd_plain,
                                               phi_psi_plain)
-from repro_torch.kernels.flash_attention import (F32_HEAD_DIMS,
+from repro_torch.kernels.flash_attention import (BUILT,
                                                  attention_plain,
                                                  bf16_excess,
                                                  flash_attention)
@@ -493,17 +493,76 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(gpu):
         ssd_scan(xdt, B, C, dA.cpu(), 32)
 
 
-@pytest.mark.parametrize("d", [16, 48, 112])
-def test_flash_attention_refuses_head_dims_it_is_not_built_for(gpu, d):
-    """Head dims outside HEAD_DIMS raise on the card in bfloat16, and
-    outside F32_HEAD_DIMS (HEAD_DIMS and 16, the transformer
-    classifier's) in float32 (the plain version takes any)."""
+@pytest.mark.parametrize("d,dv", [(16, 16), (48, 48), (112, 112),
+                                  (192, 192), (192, 64)])
+def test_flash_attention_refuses_head_dims_it_is_not_built_for(gpu, d, dv):
+    """(d, dv) pairs outside ``BUILT`` raise on the card before a launch,
+    in bfloat16 (16: the classifier's float32 dim; (48, 48): MLA's smoke
+    d with another dv; (192, 192) and (192, 64): MLA's d with a dv it is
+    not built for) and, outside the float32 pairs, in float32 (the plain
+    version takes any)."""
     q = torch.randn(2, 64, d, device=gpu).bfloat16()
+    v = torch.randn(2, 64, dv, device=gpu).bfloat16()
+    before = runtime.KERNELS["flash_attention"].launches
     with pytest.raises(ValueError, match="head dims"):
-        flash_attention(q, q, q)
-    if d not in F32_HEAD_DIMS:
+        flash_attention(q, q, v)
+    if (d, dv) not in BUILT[torch.float32]:
         with pytest.raises(ValueError, match="head dims"):
-            flash_attention(q.float(), q.float(), q.float())
+            flash_attention(q.float(), q.float(), v.float())
+    assert runtime.KERNELS["flash_attention"].launches == before
+
+
+def test_flash_attention_built_pairs_mirror_the_library(gpu):
+    """``BUILT[bfloat16]`` is the set of pairs that the library's
+    ``flash_attention_layout`` reports a layout for, each with a K/V ring
+    of at least two stages."""
+    import ctypes
+    import itertools
+
+    runtime.build(["flash_attention.cu"])
+    fn = runtime._LIBS["flash_attention.cu"].flash_attention_layout
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    stages = ctypes.c_int64()
+    dims = (16, 32, 48, 64, 80, 96, 112, 120, 128, 192)
+    laid = set()
+    for d, dv in itertools.product(dims, dims):
+        if fn(d, dv, ctypes.byref(stages)) > 0:
+            laid.add((d, dv))
+            assert stages.value >= 2, (d, dv, stages.value)
+    assert laid == set(BUILT[torch.bfloat16])
+
+
+# MLA (deepseek-v2): q.k 192 wide, values 128 (the serve's prefill call,
+# (4 x 128 heads, 1024)), and the float32 smoke widths (48, 32) and
+# (192, 128); the plain version 8 heads at a time
+@pytest.mark.parametrize("bh,s,d,dv,dtype,window", [
+    (512, 1024, 192, 128, torch.bfloat16, None),
+    (3, 129, 192, 128, torch.bfloat16, None),
+    (4, 300, 192, 128, torch.bfloat16, 64),
+    (2, 1, 192, 128, torch.bfloat16, None),
+    (8, 40, 48, 32, torch.float32, None),
+    (8, 300, 48, 32, torch.float32, 7),
+    (8, 160, 192, 128, torch.float32, None),
+    (4, 300, 192, 128, torch.float32, 128),
+])
+def test_flash_attention_mla_pairs_match_plain(gpu, bh, s, d, dv, dtype,
+                                               window):
+    g = torch.Generator(device=gpu).manual_seed(s + d)
+    q, k = (torch.randn(bh, s, d, generator=g, device=gpu).to(dtype)
+            for _ in range(2))
+    v = torch.randn(bh, s, dv, generator=g, device=gpu).to(dtype)
+    before = runtime.KERNELS["flash_attention"].launches
+    got = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["flash_attention"].launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (bh, s, dv)
+    want = torch.cat([attention_plain(q[i:i + 8], k[i:i + 8], v[i:i + 8],
+                                      window) for i in range(0, bh, 8)])
+    atol = 2e-5 if dtype == torch.float32 else 2 * 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    if dtype == torch.bfloat16:
+        assert bf16_excess(got, want) <= 1
 
 
 def test_hybrid_serve_smoke_on_gpu_matches_cpu(gpu):
@@ -583,6 +642,41 @@ def test_family_width_variants_on_gpu_match_cpu(gpu, case):
             params = init_params(cfg, rng.PRNGKey(0), device=dev)
             logits.append(make_prefill_step(cfg, 166)(
                 params, {"tokens": toks.to(dev)})[0].cpu())
+    torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["smoke", "width192", "routing"])
+def test_mla_on_gpu_matches_cpu(gpu, case):
+    """deepseek-v2's smoke config (B4 float32 at (48, 32)), its width-192
+    variant ((192, 128)) and its published routing (160 experts, top 6,
+    capacity factor 1.25: a group of 320 tokens, 16 places an expert,
+    drops): B4 once a layer, the same greedy tokens as the CPU's,
+    last-token logits within 1e-4."""
+    from repro_torch.configs import deepseek_v2_236b as ds
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import init_params, tree_map
+
+    cfg = {"smoke": lambda: get_config("deepseek-v2-236b-smoke"),
+           "width192": ds.width192_smoke,
+           "routing": ds.routing_smoke}[case]()
+    # one draw, on the card; the CPU runs a copy (the routing preset's
+    # 329M parameters take minutes to draw on the CPU)
+    with torch.inference_mode():
+        params = {gpu: init_params(cfg, rng.PRNGKey(0), device=gpu)}
+    params["cpu"] = tree_map(lambda t: t.cpu(), params[gpu])
+    runtime.reset_launch_counts()
+    got = serve(cfg, 2, 160, 6, device=gpu, params=params[gpu])
+    assert runtime.launch_counts()["flash_attention"] == 2
+    assert torch.equal(got.cpu(), serve(cfg, 2, 160, 6, device="cpu",
+                                        params=params["cpu"]))
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 160)))
+    logits = []
+    for dev in (gpu, "cpu"):
+        with torch.inference_mode():
+            logits.append(make_prefill_step(cfg, 166)(
+                params[dev], {"tokens": toks.to(dev)})[0].cpu())
     torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=1e-4)
 
 

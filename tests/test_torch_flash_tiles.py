@@ -14,7 +14,9 @@ It also meets the per-element bound ``bf16_excess`` <= 1 that the card
 tests add, and a planted fault in the window's first key tile does not.
 Head dims 80, 96 and 120 run in the kernel's 128-column tile, their
 columns d-127 loaded as zeros and the output's dropped, with the scale
-of d; the emulation pads the same way.
+of d; the emulation pads the same way.  MLA's (d, dv) = (192, 128)
+(deepseek-v2) runs in three 64-column chunks of q and k, no padding; it
+is emulated at the serve's row length of 1024.
 """
 import math
 
@@ -30,7 +32,7 @@ from test_torch_reference import load_reference
 BQ = BK = 128           # the kernel's query and key tiles
 ATOL = 2 * 2.0 ** -6    # tests/test_torch_cuda.py, the bfloat16 cases
 TILE = {32: 32, 64: 64, 80: 128, 96: 128, 120: 128,
-        128: 128}   # head dim -> tile columns
+        128: 128, 192: 192}   # head dim -> tile columns
 
 
 def emulate(q, k, v, window=None, late_skip=0):
@@ -104,6 +106,40 @@ def test_tiled_emulation_matches_pallas(d, window):
         *(jnp.asarray(t, jnp.bfloat16) for t in x), window=window,
         interpret=True, blk_q=BQ, blk_k=BK)
     got = emulate(*(torch.tensor(t).bfloat16() for t in x), window)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("s,window", [(1024, None), (300, 64)])
+def test_tiled_emulation_at_the_mla_pair(s, window):
+    """(d, dv) = (192, 128), the scale 1/sqrt(192): at the serve's
+    prefill row length (8 of its 512 heads) and off the tile with a
+    window, within the bf16 tolerance and the per-element bound."""
+    rs = np.random.default_rng(s)
+    q, k = (torch.tensor(rs.standard_normal((8, s, 192)).astype(
+        np.float32)).bfloat16() for _ in range(2))
+    v = torch.tensor(rs.standard_normal((8, s, 128)).astype(
+        np.float32)).bfloat16()
+    got = emulate(q, k, v, window)
+    want = attention_plain(q, k, v, window)
+    assert got.shape == (8, s, 128)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL)
+    x = bf16_excess(got, want)
+    print(f"bf16_excess at (8, {s}, 192 -> 128) window {window}: {x:.3f}")
+    assert x <= 1
+
+
+def test_tiled_emulation_at_the_mla_pair_matches_pallas():
+    """The reference's Pallas kernel (interpret mode) at (192, 128)."""
+    ref = load_reference()
+    rs = np.random.default_rng(192)
+    x = [rs.standard_normal((2, 256, w)).astype(np.float32)
+         for w in (192, 192, 128)]
+    want = ref.flash_attention.flash_attention_pallas(
+        *(jnp.asarray(t, jnp.bfloat16) for t in x), interpret=True,
+        blk_q=BQ, blk_k=BK)
+    got = emulate(*(torch.tensor(t).bfloat16() for t in x))
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=0,
                                atol=ATOL)

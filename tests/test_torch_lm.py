@@ -350,9 +350,10 @@ def test_synthetic_tokens_bit_exact(n, T, vocab):
 
 
 @pytest.mark.parametrize("change", [
-    # MoE and qk-norm run since A15-arch part 1; with MLA or the int8
-    # cache they still wait
-    dict(attn_type="mla"), dict(family="moe", attn_type="mla"),
+    # MoE and qk-norm run since A15-arch part 1, MLA since part 2; with
+    # M-RoPE, cross-attention or the int8 cache they still wait
+    dict(attn_type="mla", mrope=True),
+    dict(family="moe", attn_type="mla", cross_attention=True),
     dict(family="hybrid", kv_quant=True),
     dict(family="vlm"), dict(family="audio"),
     dict(kv_quant=True), dict(cross_attention=True), dict(mrope=True),
