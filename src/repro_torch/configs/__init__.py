@@ -2,14 +2,14 @@
 ``ArchConfig`` (every field, property and ``smoke()``), its input shapes
 and its name registry.
 
-The registry holds the architectures the port runs: ``qwen2-0.5b``,
+The registry holds every architecture of the reference: ``qwen2-0.5b``,
 ``qwen3-14b``, ``phi3-mini-3.8b``, ``h2o-danube-3-4b``,
-``qwen2-moe-a2.7b``, ``deepseek-v2-236b``, ``mamba2-370m`` and
-``zamba2-2.7b`` (the LM serve path) and ``paper-cnn`` (the paper's own
-model, whose layer constants live in ``configs/paper_cnn.py``).  The
-others of the reference (qwen2-vl, whisper) arrive with the model
-families that run them (ROADMAP A15-arch).
-The dry-run ``input_specs`` wait for ``launch/dryrun.py`` (A15).
+``qwen2-moe-a2.7b``, ``deepseek-v2-236b``, ``qwen2-vl-72b``,
+``whisper-medium``, ``mamba2-370m`` and ``zamba2-2.7b`` (the LM serve
+and train paths) and ``paper-cnn`` (the paper's own model, whose layer
+constants live in ``configs/paper_cnn.py``).  The dry-run
+``input_specs`` wait for ``launch/dryrun.py``, which goes after the
+roofline (ROADMAP A14) and the sharding rules (A13).
 """
 from __future__ import annotations
 
@@ -228,4 +228,5 @@ def _ensure_loaded() -> None:
     _LOADED = True
     from . import (deepseek_v2_236b, h2o_danube3_4b,  # noqa: F401
                    mamba2_370m, paper_cnn, phi3_mini_3_8b, qwen2_0_5b,
-                   qwen2_moe_a2_7b, qwen3_14b, zamba2_2_7b)
+                   qwen2_moe_a2_7b, qwen2_vl_72b, qwen3_14b,
+                   whisper_medium, zamba2_2_7b)

@@ -1,10 +1,15 @@
 """Batched LM serving driver: prefill a batch of prompts into a cache,
-then decode greedily, on the dense, MoE, SSM and hybrid architectures
-(qwen2-0.5b, qwen3-14b, phi3-mini-3.8b, h2o-danube-3-4b,
-qwen2-moe-a2.7b, deepseek-v2-236b, mamba2-370m, zamba2-2.7b; the smoke
-preset by default, ``--full`` for the published widths; deepseek-v2's 60
-layers do not fit one 80 GB card: on the GPU, serve a config of it with
-its depth cut, ``dataclasses.replace(CONFIG, num_layers=6)``).
+then decode greedily, on the token architectures (qwen2-0.5b, qwen3-14b,
+phi3-mini-3.8b, h2o-danube-3-4b, qwen2-moe-a2.7b, deepseek-v2-236b,
+whisper-medium, mamba2-370m, zamba2-2.7b; the smoke preset by default,
+``--full`` for the published widths; deepseek-v2's 60 layers do not fit
+one 80 GB card: on the GPU, serve a config of it with its depth cut,
+``dataclasses.replace(CONFIG, num_layers=6)``).  whisper-medium's
+decoder attends to a stub encoder output drawn from PRNGKey(2), passed
+to the prefill and to every decode step, as in the reference.  The vlm
+architecture (qwen2-vl-72b) takes embeddings, not tokens: as in the
+reference, it serves through the prefill and decode steps with stub
+embeddings (``chip_smoke.py`` phase 38), and this driver refuses it.
 
 Usage (on the GPU; ``--device cpu`` runs the plain kernel versions):
 
@@ -20,6 +25,8 @@ Usage (on the GPU; ``--device cpu`` runs the plain kernel versions):
       --arch qwen2-moe-a2.7b [--full]
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-236b
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-medium [--full]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       [--full]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
@@ -47,6 +54,7 @@ from .. import rng
 from ..configs import ArchConfig, get_config
 from ..data import synthetic_tokens
 from ..device import resolve_device
+from ..models.layers import dtype_of
 from ..models.transformer import count_params, init_params
 from .steps import make_decode_step, make_prefill_step
 
@@ -54,6 +62,18 @@ from .steps import make_decode_step, make_prefill_step
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def stub_encoder(cfg, batch: int, device) -> dict:
+    """``{"enc_out": (batch, encoder_seq, d_model)}`` for a cross-attention
+    config, the stub encoder's output frames (a normal from PRNGKey(2) in
+    the parameters' dtype, as the reference's serve draws them); ``{}``
+    for any other."""
+    if not cfg.cross_attention:
+        return {}
+    return {"enc_out": rng.normal(
+        rng.PRNGKey(2, resolve_device(device)),
+        (batch, cfg.encoder_seq, cfg.d_model)).to(dtype_of(cfg))}
 
 
 @torch.inference_mode()
@@ -74,6 +94,10 @@ def serve(arch: str | ArchConfig, batch: int, prompt_len: int, gen: int,
         cfg = get_config(arch)
         if smoke:
             cfg = cfg.smoke()
+    if cfg.embed_input:
+        raise SystemExit(f"{arch}: serve demo uses token archs; "
+                         "vlm/audio serve via the same decode_step with "
+                         "stub embeddings (see dryrun decode shapes)")
     if params is None:
         params = init_params(cfg, rng.PRNGKey(0), device=device)
     log(f"arch={arch} params={count_params(params)/1e6:.2f}M "
@@ -84,10 +108,11 @@ def serve(arch: str | ArchConfig, batch: int, prompt_len: int, gen: int,
     decode = make_decode_step(cfg)
     prompts = synthetic_tokens(rng.PRNGKey(1), batch, prompt_len,
                                cfg.vocab_size, device=device)
+    extra = stub_encoder(cfg, batch, device)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits_last, cache = prefill(params, {"tokens": prompts})
+    logits_last, cache = prefill(params, {"tokens": prompts, **extra})
     nxt = torch.argmax(logits_last, dim=-1)
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -95,7 +120,8 @@ def serve(arch: str | ArchConfig, batch: int, prompt_len: int, gen: int,
     outs = [nxt]
     t0 = time.perf_counter()
     for _ in range(gen - 1):
-        nxt, cache = decode(params, {"tokens": nxt[:, None], "cache": cache})
+        nxt, cache = decode(params, {"tokens": nxt[:, None], "cache": cache,
+                                     **extra})
         outs.append(nxt)
     _sync(device)
     t_decode = time.perf_counter() - t0

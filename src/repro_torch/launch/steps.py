@@ -173,14 +173,15 @@ def make_train_step(cfg, grad_accum: int | None = None):
 # ---------------------------------------------------------------------------
 
 def make_prefill_step(cfg, seq_len: int):
-    """tokens (B, S) -> (last-token logits, filled cache of ``seq_len``;
-    the SSM cache, and the hybrid's mamba part, do not depend on
-    ``seq_len``)."""
+    """tokens (B, S) or embeds (B, S, D), and enc_out for a
+    cross-attention config -> (last-token logits, filled cache of
+    ``seq_len``; the SSM cache, and the hybrid's mamba part, do not
+    depend on ``seq_len``)."""
 
     def prefill_step(params, batch):
-        tokens = batch["tokens"]
-        cache = kvcache.init_cache(cfg, tokens.shape[0], seq_len,
-                                   device=tokens.device)
+        inp = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        cache = kvcache.init_cache(cfg, inp.shape[0], seq_len,
+                                   device=inp.device)
         logits, _, new_cache = forward(cfg, params, batch, cache=cache)
         return logits[:, -1], new_cache
 

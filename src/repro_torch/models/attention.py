@@ -28,8 +28,23 @@ heads.  The prompt (and the no-cache forward) builds per-head keys
 causal path as GQA (flash attention at (d, dv) = (nope + rope, v_head):
 (192, 128) at the published widths).  Decode attends in the latent
 space (the absorbed path): ``wk_b`` folded into the query, ``wv_b``
-applied after the softmax.  Cross-attention, M-RoPE and the int8 cache
-wait for the families that use them (ROADMAP A15-arch).
+applied after the softmax.
+
+M-RoPE (qwen2-vl, ``cfg.mrope``) rotates q and k by the (t, h, w)
+position streams ``positions3`` (:func:`~repro_torch.models.rope.
+mrope_cos_sin`); MLA ignores them, as the reference does.
+
+The int8 cache (``cfg.kv_quant``) holds int8 k/v and a float32 scale a
+(position, head), symmetric over the head dim (:func:`_quantize_kv`,
+rounding half to even as ``jnp.round`` does).  The prefill attends
+through the kernel on the unquantized k/v and then writes the quantized
+tail; decode writes this token's int8 k/v and scales into their slots
+and attends to the whole cache dequantized to the compute dtype.
+
+Cross-attention (whisper, :func:`cross_attention`) attends to the
+encoder's K/V (:func:`encode_cross_kv`) through :func:`masked_attention`
+with ``causal=False``: the flash kernel computes causal attention only,
+so it stays on the reference's plain math.
 """
 from __future__ import annotations
 
@@ -41,7 +56,7 @@ from .. import rng
 from ..kernels.flash_attention import flash_attention
 from ..kernels.runtime import records_grad
 from .layers import checkpointed, dense_init, dtype_of, rms_norm_headwise
-from .rope import apply_rope, rope_cos_sin
+from .rope import apply_rope, mrope_cos_sin, rope_cos_sin
 from .shardhooks import constrain
 
 NEG_INF = -1e30
@@ -53,17 +68,13 @@ KV_CHUNK = 1024
 
 
 def check_supported(cfg) -> None:
-    """Raise for every attention option this slice does not run."""
-    todo = {"attn_type": cfg.attn_type not in ("gqa", "mla"),
-            "mrope": cfg.mrope,
-            "cross_attention": cfg.cross_attention,
-            "kv_quant": cfg.kv_quant,
-            "pos_emb": cfg.pos_emb not in ("rope", "learned")}
-    for name, hit in todo.items():
-        if hit:
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported yet: "
-                "ROADMAP A15-arch")
+    """Raise for an attention type or position embedding the reference
+    does not have."""
+    for name, known in (("attn_type", ("gqa", "mla")),
+                        ("pos_emb", ("rope", "learned"))):
+        if getattr(cfg, name) not in known:
+            raise ValueError(f"{name}={getattr(cfg, name)!r}: the "
+                             f"reference takes one of {known}")
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +108,11 @@ def init_attn(cfg, key):
     if cfg.qk_norm:
         for name in ("q_scale", "k_scale"):
             p[name] = torch.ones((hd,), dtype=dt, device=key.device)
+    if cfg.cross_attention:
+        p["xwq"] = dense_init(ks[4], D, H * hd, dt)
+        p["xwk"] = dense_init(ks[5], D, Hkv * hd, dt)
+        p["xwv"] = dense_init(ks[6], D, Hkv * hd, dt)
+        p["xwo"] = dense_init(ks[7], H * hd, D, dt)
     return p
 
 
@@ -230,8 +246,10 @@ def _proj(x, w, b=None):
     return y
 
 
-def gqa_attention(cfg, p, x, q_pos, kv_pos, cache=None):
-    """x: (B,T,D); cache: a layer's ``{"k","v": (B,Sc,Hkv,hd)}`` or None.
+def gqa_attention(cfg, p, x, q_pos, kv_pos, cache=None, positions3=None):
+    """x: (B,T,D); cache: a layer's ``{"k","v": (B,Sc,Hkv,hd)}`` (with
+    ``kv_quant``: int8, and ``"k_scale","v_scale": (B,Sc,Hkv)`` float32)
+    or None; positions3: (B,T,3) with ``cfg.mrope``.
 
     Returns (out, cache).  With a cache, T == 1 decodes (this token's
     k/v go into its slot) and T > 1 prefills (the cache is rebuilt from
@@ -252,7 +270,12 @@ def gqa_attention(cfg, p, x, q_pos, kv_pos, cache=None):
         q = rms_norm_headwise(q, p["q_scale"])
         k = rms_norm_headwise(k, p["k_scale"])
     if cfg.pos_emb == "rope":
-        cos, sin = rope_cos_sin(q_pos, hd, cfg.rope_theta)
+        if cfg.mrope:
+            if positions3 is None:
+                raise ValueError("an M-RoPE config needs positions3")
+            cos, sin = mrope_cos_sin(positions3, hd, cfg.rope_theta)
+        else:
+            cos, sin = rope_cos_sin(q_pos, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     scale = 1.0 / math.sqrt(hd)
@@ -260,8 +283,16 @@ def gqa_attention(cfg, p, x, q_pos, kv_pos, cache=None):
     if cache is not None and T == 1:
         # ---- decode: scatter this token's k/v into its slot ----
         slots = _cache_slots(cfg, q_pos, cache["k"].shape[1])   # (B,1)
-        ck = _scatter_cache(cache["k"], k, slots)
-        cv = _scatter_cache(cache["v"], v, slots)
+        if cfg.kv_quant:
+            for name, t in (("k", k), ("v", v)):
+                qt, sc = _quantize_kv(t)
+                _scatter_cache(cache[name], qt, slots)
+                _scatter_cache(cache[name + "_scale"], sc, slots)
+            ck = _dequantize_kv(cache["k"], cache["k_scale"], k.dtype)
+            cv = _dequantize_kv(cache["v"], cache["v_scale"], v.dtype)
+        else:
+            ck = _scatter_cache(cache["k"], k, slots)
+            cv = _scatter_cache(cache["v"], v, slots)
         o = masked_attention(q, ck, cv, q_pos, kv_pos, scale=scale,
                              window=cfg.sliding_window, causal=True)
     else:
@@ -275,9 +306,41 @@ def gqa_attention(cfg, p, x, q_pos, kv_pos, cache=None):
             o = prefill_attention(q, k, v, window=cfg.sliding_window)
         if cache is not None:   # prefill: the cache from the tail
             Sc = cache["k"].shape[1]
-            cache["k"].copy_(_tail_cache(k, Sc))
-            cache["v"].copy_(_tail_cache(v, Sc))
+            for name, t in (("k", k), ("v", v)):
+                if cfg.kv_quant:
+                    t, sc = _quantize_kv(t)
+                    cache[name + "_scale"].copy_(_tail_cache(sc, Sc))
+                cache[name].copy_(_tail_cache(t, Sc))
     return o.reshape(B, T, H * hd) @ p["wo"], cache
+
+
+def cross_attention(cfg, p, x, enc_kv):
+    """Whisper's cross-attention.  x: (B,T,D); enc_kv: ``{"k","v":
+    (B,Senc,Hkv,hd)}``.  Every encoder position is visible to every
+    query (``kv_pos`` all zero, not causal), through the reference's
+    plain math."""
+    B, T, D = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ p["xwq"]).reshape(B, T, H, hd)
+    S = enc_kv["k"].shape[1]
+    q_pos = torch.arange(T, device=x.device).expand(B, T)
+    kv_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    o = masked_attention(q, enc_kv["k"], enc_kv["v"], q_pos, kv_pos,
+                         scale=1.0 / math.sqrt(hd), causal=False)
+    return o.reshape(B, T, H * hd) @ p["xwo"]
+
+
+def encode_cross_kv(cfg, p, enc_out):
+    """enc_out: (B,Senc,D) in the parameters' dtype -> ``{"k","v":
+    (B,Senc,Hkv,hd)}``."""
+    if enc_out.dtype != p["xwk"].dtype:
+        raise ValueError(f"enc_out is {enc_out.dtype}, the parameters "
+                         f"{p['xwk'].dtype}: cast it first (the serve "
+                         "does)")
+    B, S, _ = enc_out.shape
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": (enc_out @ p["xwk"]).reshape(B, S, Hkv, hd),
+            "v": (enc_out @ p["xwv"]).reshape(B, S, Hkv, hd)}
 
 
 def _cache_slots(cfg, q_pos, cache_len):
@@ -295,8 +358,21 @@ def _scatter_cache(cache, new, slots):
     return cache
 
 
+def _quantize_kv(x):
+    """x: (B,S,H,d) -> (int8 values, float32 scales (B,S,H)): symmetric
+    over the head dim, rounded half to even (``jnp.round``)."""
+    xf = x.float()
+    sc = xf.abs().amax(-1).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / sc[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, sc
+
+
+def _dequantize_kv(q, sc, dtype):
+    return (q.float() * sc[..., None]).to(dtype)
+
+
 def _tail_cache(k, Sc: int):
-    """A (ring) cache holding the last ``Sc`` of ``k``: (B,S,H,d)."""
+    """A (ring) cache holding the last ``Sc`` of ``k``: (B,S,...)."""
     S = k.shape[1]
     if Sc == S:
         return k

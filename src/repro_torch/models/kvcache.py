@@ -1,16 +1,18 @@
-"""Decode-time caches of the dense, MoE, SSM and hybrid families.
+"""Decode-time caches of every family.
 
 Layout, as in the reference, every per-layer leaf stacked on a leading
 layer axis (the hybrid's on its super-block axes):
 
-  dense, moe : {"pos": int, "layers": {"k", "v": (L, B, Sc, Hkv, hd)}}
-  mla        : {"pos": int, "layers": {"ckv": (L, B, Sc, kv_lora),
-                                       "kr": (L, B, Sc, rope_head_dim)}}
-  ssm        : {"pos": int, "layers": {"state": (L, B, H, N, P) float32,
-                                       "conv": (L, B, k-1, Cd)}}
-  hybrid     : {"pos": int, "mamba": {"state": (G, A, B, H, N, P) float32,
-                                      "conv": (G, A, B, k-1, Cd)},
-                            "attn": {"k", "v": (G, B, Sc, Hkv, hd)}}
+  dense, vlm, moe : {"pos": int, "layers": {"k", "v": (L, B, Sc, Hkv, hd)}}
+  mla             : {"pos": int, "layers": {"ckv": (L, B, Sc, kv_lora),
+                                            "kr": (L, B, Sc, rope_head_dim)}}
+  ssm             : {"pos": int, "layers": {"state": (L, B, H, N, P) float32,
+                                            "conv": (L, B, k-1, Cd)}}
+  hybrid          : {"pos": int, "mamba": {"state": (G, A, B, H, N, P)
+                                           float32, "conv": (G, A, B, k-1, Cd)},
+                                 "attn": {"k", "v": (G, B, Sc, Hkv, hd)}}
+  audio           : the dense cache + {"xk", "xv": (L, B, Senc, Hkv, hd)},
+                    the encoder's cross-attention K/V
 
 with G = L // attn_every super-blocks of A = attn_every mamba layers;
 the one shared attention block keeps a cache per super-block.  ``Sc`` is
@@ -21,8 +23,10 @@ slots need no stored metadata.
 
 The MLA cache (deepseek-v2, a moe-family config with ``attn_type
 "mla"``) holds the latent and the one rope key a position, for all
-heads; it is linear (no window).  The audio cache and the int8
-``kv_quant`` cache wait for their families (ROADMAP A15).
+heads; it is linear (no window).  With ``kv_quant`` a GQA cache (the
+hybrid's attention part too) holds int8 ``k``/``v`` and float32
+``k_scale``/``v_scale`` of (..., B, Sc, Hkv): one scale a position and
+head.
 """
 from __future__ import annotations
 
@@ -40,16 +44,8 @@ def cache_len(cfg, seq_len: int) -> int:
 
 
 def _check(cfg):
-    if cfg.family == "ssm":
-        return
-    if cfg.family not in ("dense", "moe", "hybrid") \
-            or cfg.attn_type not in ("gqa", "mla"):
-        raise NotImplementedError(
-            f"cache of family {cfg.family!r} / attention {cfg.attn_type!r}"
-            " is not ported yet: ROADMAP A15")
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "the int8 KV cache (kv_quant) is not ported yet: ROADMAP A15")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio"):
+        raise ValueError(f"no cache for family {cfg.family}")
 
 
 def _mamba_shapes(cfg, lead, batch: int):
@@ -65,6 +61,10 @@ def _kv_shapes(cfg, lead, batch: int, seq_len: int):
         return {"ckv": (rows + (cfg.kv_lora_rank,), dtype_of(cfg)),
                 "kr": (rows + (cfg.rope_head_dim,), dtype_of(cfg))}
     kv = rows + (cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_quant:
+        sc = rows + (cfg.num_kv_heads,)
+        return {"k": (kv, torch.int8), "v": (kv, torch.int8),
+                "k_scale": (sc, torch.float32), "v_scale": (sc, torch.float32)}
     return {"k": (kv, dtype_of(cfg)), "v": (kv, dtype_of(cfg))}
 
 
@@ -81,6 +81,10 @@ def cache_shapes(cfg, batch: int, seq_len: int):
         out["attn"] = _kv_shapes(cfg, (G,), batch, seq_len)
     else:
         out["layers"] = _kv_shapes(cfg, (L,), batch, seq_len)
+    if cfg.family == "audio":
+        xkv = (L, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        out["layers"]["xk"] = (xkv, dtype_of(cfg))
+        out["layers"]["xv"] = (xkv, dtype_of(cfg))
     return out
 
 

@@ -22,8 +22,15 @@ in place of ``mlp`` (:mod:`repro_torch.models.moe`); each layer's router
 loss adds into the float32 ``aux`` that :func:`forward` returns.  A
 block whose config has ``attn_type "mla"`` (deepseek-v2) attends through
 :func:`~repro_torch.models.attention.mla_attention` and keeps the latent
-cache.  What waits for later slices (ROADMAP A15-arch): the vlm and
-audio families.
+cache.
+
+The vlm family (qwen2-vl) is the dense block fed embeddings, its q and k
+rotated by M-RoPE over three position streams (text-only: three copies
+of the token positions).  The audio family (whisper) adds cross-
+attention to each block (``ln_x`` and the ``xw*`` weights): its K/V come
+from ``batch["enc_out"]`` when given (the prefill, and every decode step
+of the serve, as in the reference) and from the cache's ``xk``/``xv``
+otherwise.
 """
 from __future__ import annotations
 
@@ -33,8 +40,8 @@ import torch
 from .. import rng
 from ..device import resolve_device
 from . import kvcache
-from .attention import (check_supported, gqa_attention, init_attn,
-                        mla_attention)
+from .attention import (check_supported, cross_attention, encode_cross_kv,
+                        gqa_attention, init_attn, mla_attention)
 from .layers import (apply_norm, dense_init, dtype_of, embed_init, init_norm,
                      checkpointed)
 from .mamba2 import init_mamba, mamba2_forward
@@ -43,15 +50,19 @@ from .moe import init_moe, moe_ffn
 from .shardhooks import constrain
 
 
+_FAMILIES = ("dense", "vlm", "moe", "audio", "ssm", "hybrid")
+_ATTN_FAMILIES = ("dense", "vlm", "moe", "audio")   # one attention block a layer
+
+
 def _check(cfg) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP A15-arch")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"family {cfg.family!r}: the reference takes one "
+                         f"of {_FAMILIES}")
     if cfg.family != "ssm":
         check_supported(cfg)
     elif cfg.pos_emb not in ("rope", "learned"):
-        raise NotImplementedError(
-            f"pos_emb={cfg.pos_emb!r} is not ported yet: ROADMAP A15-arch")
+        raise ValueError(f"pos_emb={cfg.pos_emb!r}: the reference takes "
+                         "rope or learned")
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +79,8 @@ def _init_block(cfg, key):
         p["moe"] = init_moe(cfg, ks[1])
     else:
         p["mlp"] = init_mlp(cfg, ks[1])
+    if cfg.cross_attention:
+        p["ln_x"] = init_norm(cfg, cfg.d_model, dev)
     return p
 
 
@@ -97,7 +110,7 @@ def init_params(cfg, key, device=None):
     if cfg.pos_emb == "learned":
         p["pos_embed"] = embed_init(ks[2], cfg.max_position, cfg.d_model, dt)
     hybrid = cfg.family == "hybrid"
-    init_layer = (_init_block if cfg.family in ("dense", "moe")
+    init_layer = (_init_block if cfg.family in _ATTN_FAMILIES
                   else _init_mamba_block)
     n = cfg.num_layers
     if hybrid:   # G * A mamba layers from one split, then (G, A, ...)
@@ -154,13 +167,33 @@ def count_params(params) -> int:
 # Blocks and forward
 # ---------------------------------------------------------------------------
 
-def _attn_block(cfg, p, x, q_pos, kv_pos, cache):
-    """Returns (x, the layer's router loss or None, cache)."""
+def _attn_block(cfg, p, x, q_pos, kv_pos, cache, positions3=None,
+                enc_out=None):
+    """Returns (x, the layer's router loss or None, cache).  With
+    ``cfg.cross_attention`` the cross K/V come from ``enc_out`` when it
+    is given (and are written into the cache's ``xk``/``xv``), else from
+    the cache (decode only)."""
     x = constrain(x, "resid")
     h = apply_norm(cfg, p["ln1"], x)
-    attend = mla_attention if cfg.attn_type == "mla" else gqa_attention
-    a, cache = attend(cfg, p["attn"], h, q_pos, kv_pos, cache)
+    if cfg.attn_type == "mla":
+        a, cache = mla_attention(cfg, p["attn"], h, q_pos, kv_pos, cache)
+    else:
+        a, cache = gqa_attention(cfg, p["attn"], h, q_pos, kv_pos, cache,
+                                 positions3)
     x = x + a
+    if cfg.cross_attention:
+        h = apply_norm(cfg, p["ln_x"], x)
+        if enc_out is not None:
+            ekv = encode_cross_kv(cfg, p["attn"], enc_out)
+            if cache is not None:
+                cache["xk"].copy_(ekv["k"])
+                cache["xv"].copy_(ekv["v"])
+        elif cache is not None and x.shape[1] == 1:
+            ekv = {"k": cache["xk"], "v": cache["xv"]}
+        else:
+            raise ValueError("cross-attention needs batch['enc_out'] "
+                             "(only a decode step reads the cached xk/xv)")
+        x = x + cross_attention(cfg, p["attn"], h, ekv)
     h = apply_norm(cfg, p["ln2"], x)
     if cfg.is_moe:
         y, aux = moe_ffn(cfg, p["moe"], h)
@@ -200,7 +233,10 @@ def forward(cfg, params, batch, cache=None, *, remat=True,
     final-normed hidden (B, T, D) in place of the logits with
     ``return_hidden`` (the chunked loss unembeds it itself).
 
-    ``batch["tokens"]``: (B, T) int, or ``batch["embeds"]``: (B, T, D).
+    ``batch["tokens"]``: (B, T) int, or ``batch["embeds"]``: (B, T, D);
+    ``batch["enc_out"]``: (B, Senc, D), the encoder's output, for a
+    cross-attention config (optional in decode, which then reads the
+    cached cross K/V).
     Without ``cache``: the training forward over positions 0..T-1 (each
     layer recomputed in the backward with ``remat``; new_cache None).
     With ``cache``: decode (T == 1) or cache-building prefill (T > 1);
@@ -221,6 +257,9 @@ def forward(cfg, params, batch, cache=None, *, remat=True,
               else cache["layers"])[
             "ckv" if cfg.attn_type == "mla" else "k"].shape[2]
         kv_pos = kvcache.kv_positions(cfg, pos0, Sc, B, dev)
+    # text-only M-RoPE: the (t, h, w) streams are the token positions
+    positions3 = torch.stack([q_pos] * 3, -1) if cfg.mrope else None
+    enc_out = batch.get("enc_out")
     if cfg.pos_emb == "learned":
         x = x + params["pos_embed"][q_pos[0]][None]
     # each layer keeps only its input for the backward
@@ -229,7 +268,8 @@ def forward(cfg, params, batch, cache=None, *, remat=True,
     aux = torch.zeros((), dtype=torch.float32, device=dev)
 
     def attn(x, p, c=None):
-        return _attn_block(cfg, p, x, q_pos, kv_pos, c)[:2]
+        return _attn_block(cfg, p, x, q_pos, kv_pos, c, positions3,
+                           enc_out)[:2]
 
     def mamba(x, p, c=None):
         return _mamba_block(cfg, p, x, c)[0]

@@ -680,6 +680,114 @@ def test_mla_on_gpu_matches_cpu(gpu, case):
     torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("bh,s,d", [(8, 1024, 128), (8, 1024, 64)],
+                         ids=["qwen2-vl", "whisper"])
+def test_flash_attention_bf16_at_the_vlm_and_audio_calls(gpu, bh, s, d):
+    """B4 at the qwen2-vl (256, 1024, 128) and whisper (64, 1024, 64)
+    prefill calls, on 8 of their heads: within 2 bf16 ulps of the plain
+    version and ``bf16_excess`` <= 1."""
+    g = torch.Generator(device=gpu).manual_seed(d)
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=gpu).bfloat16()
+               for _ in range(3))
+    got = flash_attention(q, k, v)
+    want = attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2 * 2.0 ** -6)
+    assert bf16_excess(got, want) <= 1
+
+
+def _vlm_steps(cfg, device, prompt=40, gen=6):
+    """qwen2-vl's smoke config through the steps with stub embeddings:
+    the prefill's last-token logits and the greedy tokens."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_params
+
+    with torch.inference_mode():
+        params = init_params(cfg, rng.PRNGKey(0), device=device)
+        emb = rng.normal(rng.PRNGKey(1, device),
+                         (2, prompt + gen, cfg.d_model)) * 0.1
+        logits, cache = make_prefill_step(cfg, prompt + gen)(
+            params, {"embeds": emb[:, :prompt]})
+        toks = [torch.argmax(logits, -1)]
+        for t in range(prompt, prompt + gen - 1):
+            nxt, cache = make_decode_step(cfg)(
+                params, {"embeds": emb[:, t:t + 1], "cache": cache})
+            toks.append(nxt)
+    return logits.cpu(), torch.stack(toks, 1).cpu()
+
+
+@pytest.mark.parametrize("case", ["vlm", "audio", "kv_int8"])
+def test_vlm_audio_and_int8_smoke_on_gpu_match_cpu(gpu, case):
+    """qwen2-vl (M-RoPE over embeddings, through the steps), whisper
+    (cross-attention, through serve) and qwen2-0.5b with the int8 cache
+    (through serve), float32 smoke configs: B4 once a layer on the card,
+    the same greedy tokens as the CPU's, last-token logits within
+    1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.launch.serve import stub_encoder
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import init_params
+
+    runtime.reset_launch_counts()
+    if case == "vlm":
+        cfg = get_config("qwen2-vl-72b-smoke")
+        (lg, got), (lc, want) = (_vlm_steps(cfg, d) for d in (gpu, "cpu"))
+        assert runtime.launch_counts()["flash_attention"] == 2
+        assert torch.equal(got, want)
+        torch.testing.assert_close(lg, lc, rtol=0, atol=1e-4)
+        return
+    cfg = (get_config("whisper-medium-smoke") if case == "audio" else
+           dataclasses.replace(get_config("qwen2-0.5b-smoke"), kv_quant=True))
+    got = serve(cfg, 2, 40, 6, device=gpu)
+    assert runtime.launch_counts()["flash_attention"] == 2
+    assert torch.equal(got.cpu(), serve(cfg, 2, 40, 6, device="cpu"))
+    logits = []
+    for dev in (gpu, "cpu"):
+        with torch.inference_mode():
+            params = init_params(cfg, rng.PRNGKey(0), device=dev)
+            toks = synthetic_tokens(rng.PRNGKey(1), 2, 40, cfg.vocab_size,
+                                    device=dev)
+            logits.append(make_prefill_step(cfg, 46)(params, dict(
+                stub_encoder(cfg, 2, dev), tokens=toks))[0].cpu())
+    torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=1e-4)
+
+
+def test_int8_cache_on_gpu_matches_cpu(gpu):
+    """qwen2-0.5b's smoke config with ``kv_quant``: the prefill's int8
+    cache and three decode steps' writes on the card and on the CPU.  The
+    values are equal but where the two sides' float32 k/v (another
+    summation order) round across a boundary: then off by one, in under
+    0.1% of them; the scales within 1e-5 of their size."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_tokens
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b-smoke"), kv_quant=True)
+    caches = []
+    for dev in (gpu, "cpu"):
+        with torch.inference_mode():
+            params = init_params(cfg, rng.PRNGKey(0), device=dev)
+            toks = synthetic_tokens(rng.PRNGKey(1), 2, 64, cfg.vocab_size,
+                                    device=dev)
+            _, cache = make_prefill_step(cfg, 70)(params, {"tokens": toks})
+            for t in range(3):
+                _, cache = make_decode_step(cfg)(
+                    params, {"tokens": toks[:, t:t + 1], "cache": cache})
+        caches.append({k: v.cpu() for k, v in cache["layers"].items()})
+    for k in ("k", "v"):
+        assert caches[0][k].dtype == torch.int8
+        d = (caches[0][k].int() - caches[1][k].int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3
+        sc = caches[1][k + "_scale"]
+        assert bool(((caches[0][k + "_scale"] - sc).abs() <= 1e-5 * sc).all())
+
+
 def test_mamba2_serve_smoke_on_gpu_matches_cpu(gpu):
     runtime.reset_launch_counts()
     got = serve("mamba2-370m", 2, 40, 6, smoke=True, device=gpu)

@@ -180,8 +180,22 @@ def test_hybrid_cache_matches_reference(name):
 
 
 def test_hybrid_cache_refuses_the_int8_cache():
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        kvcache.cache_shapes(_cfg(kv_quant=True), 2, 8)
+    """The hybrid's int8 cache (refused until A15-arch part 3, hence the
+    name): the reference's shapes and dtypes, int8 k/v and float32
+    scales a (position, head) in the attention part, the mamba part
+    unchanged."""
+    ref = load_reference()
+    cfg = _cfg(kv_quant=True)
+    want = ref.kvcache.cache_shapes(_ref_cfg(cfg), 2, 8)
+    got = kvcache.cache_shapes(cfg, 2, 8)
+    assert set(got["attn"]) == set(want["attn"]) == {"k", "v", "k_scale",
+                                                     "v_scale"}
+    for group in ("mamba", "attn"):
+        for k, (shape, dtype) in got[group].items():
+            assert shape == want[group][k][0], (group, k)
+            assert str(dtype).removeprefix("torch.") == \
+                jnp.dtype(want[group][k][1]).name, (group, k)
+    assert got["attn"]["k"][1] == torch.int8
 
 
 # ---------------------------------------------------------------------------

@@ -349,37 +349,119 @@ def test_synthetic_tokens_bit_exact(n, T, vocab):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("change", [
-    # MoE and qk-norm run since A15-arch part 1, MLA since part 2; with
-    # M-RoPE, cross-attention or the int8 cache they still wait
-    dict(attn_type="mla", mrope=True),
-    dict(family="moe", attn_type="mla", cross_attention=True),
-    dict(family="hybrid", kv_quant=True),
-    dict(family="vlm"), dict(family="audio"),
-    dict(kv_quant=True), dict(cross_attention=True), dict(mrope=True),
-    # embeddings in and learned positions run since A15-train; with
-    # M-RoPE (vlm) or cross-attention (audio) they still wait
-    dict(embed_input=True, mrope=True), dict(qk_norm=True, kv_quant=True),
-    dict(pos_emb="learned", cross_attention=True),
-])
-def test_options_outside_the_slice_raise(change):
-    cfg = _cfg(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        transformer.init_params(cfg, rng.PRNGKey(0), device="cpu")
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _no_cache_forward(cfg, params, batch, port):
+    """The no-cache forward of the port (``port``) or the reference on a
+    numpy batch: float32 logits, or the exception's type."""
+    try:
+        if port:
+            return _np(transformer.forward(
+                cfg, params, {k: torch.tensor(v) for k, v in batch.items()})[0])
+        return np.asarray(load_reference().transformer.forward(
+            _ref_cfg(cfg), params,
+            {k: jnp.asarray(v) for k, v in batch.items()})[0])
+    except (KeyError, ValueError) as e:
+        return type(e)
+
+
+@pytest.mark.parametrize("name,change", [
+    # the options the port refused until M-RoPE, cross-attention and the
+    # int8 cache were ported (A15-arch part 3), on this file's smoke
+    # config, and MLA's and the hybrid's on theirs (MLA with M-RoPE runs
+    # as plain MLA, as in the reference)
+    ("deepseek-v2-236b-smoke", dict(attn_type="mla", mrope=True)),
+    ("deepseek-v2-236b-smoke", dict(family="moe", attn_type="mla",
+                                    cross_attention=True)),
+    ("zamba2-2.7b-smoke", dict(family="hybrid", kv_quant=True)),
+    (SMOKE, dict(family="vlm")), (SMOKE, dict(family="audio")),
+    (SMOKE, dict(kv_quant=True)), (SMOKE, dict(cross_attention=True)),
+    (SMOKE, dict(mrope=True)),
+    (SMOKE, dict(embed_input=True, mrope=True)),
+    (SMOKE, dict(qk_norm=True, kv_quant=True)),
+    (SMOKE, dict(pos_emb="learned", cross_attention=True)),
+], ids=[f"change{i}" for i in range(11)])
+def test_options_outside_the_slice_raise(name, change):
+    """Each option the port refused before it ran (its test's name) is
+    now held to the reference: ``init_params`` (the same leaves within 4
+    float32 ulps), ``cache_shapes`` and the no-cache forward (logits
+    within 1e-4; MLA with cross-attention has no cross weights in either,
+    so both forwards fail alike)."""
+    ref = load_reference()
+    cfg = _cfg(name, **change)
+    rcfg = _ref_cfg(cfg)
+    want = _ref_params(cfg)
+    got = transformer.init_params(cfg, rng.PRNGKey(0), device="cpu")
+    assert [p for p, _ in _paths(got)] == [p for p, _ in _paths(want)]
+    for path, w in _paths(want):
+        g = got
+        for k in path:
+            g = g[k]
+        np.testing.assert_allclose(_np(g), w, rtol=4 * 2.0 ** -23,
+                                   atol=1e-30, err_msg=str(path))
+    shapes = kvcache.cache_shapes(cfg, 2, 8)
+    want_shapes = ref.kvcache.cache_shapes(rcfg, 2, 8)
+    assert [p for p, _ in _paths(shapes)] == \
+        [p for p, _ in _paths(want_shapes)]
+    for (path, (shape, dtype)), (_, (w_shape, w_dtype)) in zip(
+            _paths({k: v for k, v in shapes.items() if k != "pos"}),
+            _paths({k: v for k, v in want_shapes.items() if k != "pos"})):
+        assert shape == w_shape and str(dtype).removeprefix("torch.") == \
+            jnp.dtype(w_dtype).name, path
+    rs = np.random.default_rng(len(change))
+    batch = ({"embeds": rs.standard_normal((1, 8, cfg.d_model)).astype(
+        np.float32)} if cfg.embed_input
+        else {"tokens": rs.integers(0, cfg.vocab_size, (1, 8))})
+    if cfg.cross_attention:
+        batch["enc_out"] = (0.1 * rs.standard_normal(
+            (1, cfg.encoder_seq, cfg.d_model))).astype(np.float32)
+    ours = _no_cache_forward(cfg, transformer.params_from_jax(
+        cfg, want, device="cpu"), batch, port=True)
+    theirs = _no_cache_forward(cfg, want, batch, port=False)
+    if isinstance(theirs, type):
+        assert ours is theirs
+    else:
+        np.testing.assert_allclose(ours, theirs, rtol=0, atol=LOGIT_ATOL)
 
 
 def test_forward_without_a_cache_raises():
     """The no-cache forward runs since A15-train
-    (tests/test_torch_train_steps.py); without a cache it still raises
-    for an option outside the slice, as with one."""
+    (tests/test_torch_train_steps.py).  Its name is older: the options
+    it once refused run since A15-arch part 3, so it holds them to the
+    reference: cross-attention without a cache (with ``enc_out``, and
+    without it, where both fail), and M-RoPE's cos and sin."""
+    ref = load_reference()
     cfg = _cfg(num_layers=1)
     params = transformer.init_params(cfg, rng.PRNGKey(0), device="cpu")
     logits, _, cache = transformer.forward(
         cfg, params, {"tokens": torch.zeros(1, 3, dtype=torch.long)})
     assert logits.shape == (1, 3, cfg.vocab_size) and cache is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        transformer.forward(dataclasses.replace(cfg, cross_attention=True),
-                            params,
-                            {"tokens": torch.zeros(1, 3, dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        rope.mrope_cos_sin(torch.zeros(1, 3, 3), 32, 1e4)
+    xcfg = _cfg(num_layers=1, cross_attention=True, encoder_seq=5)
+    pj = _ref_params(xcfg, seed=3)
+    pt = transformer.params_from_jax(xcfg, pj, device="cpu")
+    toks = np.zeros((1, 3), np.int64)
+    enc = np.random.default_rng(3).standard_normal(
+        (1, 5, xcfg.d_model)).astype(np.float32)
+    got = transformer.forward(xcfg, pt, {"tokens": torch.tensor(toks),
+                                         "enc_out": torch.tensor(enc)})[0]
+    want = ref.transformer.forward(_ref_cfg(xcfg), pj,
+                                   {"tokens": jnp.asarray(toks),
+                                    "enc_out": jnp.asarray(enc)})[0]
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0,
+                               atol=LOGIT_ATOL)
+    with pytest.raises(ValueError, match="enc_out"):
+        transformer.forward(xcfg, pt, {"tokens": torch.tensor(toks)})
+    with pytest.raises(AttributeError):
+        ref.transformer.forward(_ref_cfg(xcfg), pj,
+                                {"tokens": jnp.asarray(toks)})
+    pos3 = np.random.default_rng(4).integers(0, 50, (1, 3, 3))
+    for got, want in zip(rope.mrope_cos_sin(torch.tensor(pos3), 32, 1e4),
+                         ref.rope.mrope_cos_sin(jnp.asarray(pos3), 32, 1e4)):
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0,
+                                   atol=2.0 ** -23)

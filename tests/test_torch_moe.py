@@ -295,8 +295,9 @@ def test_active_params_match_reference(name):
 
 def test_moe_cache_is_the_dense_cache():
     """The reference's cache_shapes for the full config at batch 4 and
-    1056 positions: (24, 4, 1056, 16, 128) keys and values; the int8
-    cache still raises."""
+    1056 positions: (24, 4, 1056, 16, 128) keys and values; with the
+    int8 cache (since A15-arch part 3) int8 keys and values and float32
+    scales of (24, 4, 1056, 16), as the reference's."""
     ref = load_reference()
     cfg = configs.get_config(ARCH)
     want = ref.kvcache.cache_shapes(_ref_cfg(cfg), 4, 1056)
@@ -306,8 +307,15 @@ def test_moe_cache_is_the_dense_cache():
         assert shape == want["layers"][k][0] == (24, 4, 1056, 16, 128)
         assert str(dtype).removeprefix("torch.") == \
             jnp.dtype(want["layers"][k][1]).name
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        kvcache.cache_shapes(_cfg(kv_quant=True), 2, 8)
+    q = dataclasses.replace(cfg, kv_quant=True)
+    want = ref.kvcache.cache_shapes(_ref_cfg(q), 4, 1056)
+    got = kvcache.cache_shapes(q, 4, 1056)
+    assert set(got["layers"]) == set(want["layers"])
+    for k, (shape, dtype) in got["layers"].items():
+        assert shape == want["layers"][k][0]
+        assert str(dtype).removeprefix("torch.") == \
+            jnp.dtype(want["layers"][k][1]).name
+    assert got["layers"]["k_scale"] == ((24, 4, 1056, 16), torch.float32)
 
 
 @pytest.mark.parametrize("factor", [2.0, 1.0], ids=["dropless", "drops"])
