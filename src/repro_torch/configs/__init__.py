@@ -8,8 +8,8 @@ The registry holds every architecture of the reference: ``qwen2-0.5b``,
 ``whisper-medium``, ``mamba2-370m`` and ``zamba2-2.7b`` (the LM serve
 and train paths) and ``paper-cnn`` (the paper's own model, whose layer
 constants live in ``configs/paper_cnn.py``).  The dry-run
-``input_specs`` wait for ``launch/dryrun.py``, which goes after the
-roofline (ROADMAP A14) and the sharding rules (A13).
+``input_specs`` wait for ``launch/dryrun.py``, which comes with the LM
+sharding rules of ``launch/sharding.py`` (the roofline is ported).
 """
 from __future__ import annotations
 

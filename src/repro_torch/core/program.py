@@ -36,8 +36,10 @@ from .state import RoundState
 class ProgramOptions:
     """Execution options of a round program.
 
-    ``mesh_shape`` — ``(grid_shards, device_shards)``, validated as two
-    positive ints; the loop program ignores it, as the reference's does.
+    ``mesh_shape`` — ``(grid_shards, device_shards)`` for the sweep's 2-D
+    mesh, validated as two positive ints (a budget the engine re-fits
+    per group); the loop program ignores it, as the reference's does
+    (the trainer's ``shard_devices`` mesh is 1-D).
     ``pipeline_depth`` — rounds of link draws in flight: 1 = dispatch
     and collect in the same round; 2 = round p+1's draw issued during
     round p."""
@@ -138,16 +140,13 @@ class GridRoundProgram:
     queued without a wait.  ``finalize`` waits for the device once and
     returns ``(state, outputs)`` with the outputs as numpy arrays.  The
     link draws are part of each round's queued work, so
-    ``pipeline_depth`` does not apply; a ``mesh_shape`` is refused (the
-    multi-GPU grid mesh is ROADMAP A13)."""
+    ``pipeline_depth`` does not apply; the mesh option does, in the
+    engine, which lays the group's points along the "grid" axis of
+    ``launch.mesh.make_grid_mesh``'s 2-D mesh."""
 
     def __init__(self, step_fn: Callable, state0,
                  options: Optional[ProgramOptions] = None):
         self.options = options or ProgramOptions()
-        if self.options.mesh_shape is not None:
-            raise NotImplementedError(
-                "the (grid, device) mesh of the sweep engine is not "
-                "ported yet (ROADMAP A13)")
         self._step_fn = step_fn
         self.state = RoundState.from_mapping(state0)
         self._out: dict = {}

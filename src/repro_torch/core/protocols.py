@@ -21,13 +21,23 @@ local SGD and scatters it back after the downlink.
 through a ``core/program.py`` :class:`LoopRoundProgram`, as the service
 (``launch/service.py``) does with churned cohorts.
 
+With ``shard_devices=True`` the device axis is split over the ranks of
+a ("data",) mesh (``launch/mesh.py``; the reference's ``shard_map``):
+each rank runs local SGD on its own rows of the cohort, and the two
+aggregations are :func:`weighted_avg_psum` and :func:`gout_update_psum`,
+a partial sum over the rank's rows and one all-reduce each.  Everything
+else sees the whole ``(D, ...)`` arrays on every rank, as the reference's
+GSPMD presents them: the trained rows are gathered (one all-gather a
+round), and the seed exchange, the link draw, the codec stage, the
+conversion, the downlink and the evaluation run on each rank alike,
+under cuDNN's deterministic algorithms on a GPU so that the replicas
+stay equal bit for bit.  On one rank the sharded path equals the
+vmapped one bit for bit.
+
 :func:`make_grid_round_step` is the same round for a sweep group of G
 points stacked (``sweep/engine.py``): G x D device rows through one
 captured local step, per-point values as tensors, and every host
 decision of the loop as a masked tensor operation.
-
-Not ported yet, and refused by :class:`FederatedConfig`: the
-mesh-sharded path (A13).
 """
 from __future__ import annotations
 
@@ -46,8 +56,10 @@ from ..channel.pipeline import (LinkPlan, downlink_gout, downlink_params,
                                 grid_uplink_stage, make_uplink_stage,
                                 round_trip_traced)
 from ..data.pipeline import TaskSpec, parse_task
-from ..device import resolve_device
+from ..device import deterministic_cudnn, resolve_device
 from ..kernels.distill_loss import distill_step
+from ..launch.mesh import (all_gather_rows, all_reduce_sum, make_device_mesh,
+                           mesh_coordinate)
 from ..models.registry import ModelSpec, build_model, parse_model
 from ..registry import (FLD_FAMILY, MODELS, PROTOCOLS,  # noqa: F401
                         canonical_model, canonical_protocol)
@@ -65,8 +77,7 @@ class FederatedConfig:
     """The reference's fields and defaults (the paper's Sec. IV values).
     ``sampler`` and ``channel`` are the typed sub-configs; the flat
     ``sample_*`` and ``codec``/``quant_bits``/``dp_*`` fields are their
-    aliases, reconciled as the reference does.  Values not ported yet
-    raise NotImplementedError naming their ROADMAP item."""
+    aliases, reconciled as the reference does."""
     protocol: str = "mix2fld"
     num_devices: int = 10          # |D|
     num_classes: Optional[int] = None  # N_L (None: the task's)
@@ -156,10 +167,6 @@ class FederatedConfig:
             if not isinstance(self.churn, ChurnConfig):
                 raise TypeError(f"churn must be a ChurnConfig, "
                                 f"got {type(self.churn).__name__}")
-        if self.shard_devices:
-            raise NotImplementedError(
-                "the mesh-sharded device axis is not ported yet "
-                "(ROADMAP A13)")
         mspec = parse_model(self.model)
         self.model = mspec.name
         if self.model_partition is None:
@@ -185,6 +192,11 @@ class FederatedConfig:
                     f"({self.model!r}) needs an FD-family uplink — one "
                     "of ('fd',) + FLD_FAMILY "
                     f"{FLD_FAMILY}")
+            if self.shard_devices:
+                raise ValueError(
+                    "mixed-architecture cohorts are not supported on the "
+                    "mesh-sharded path (shard_devices=True): per-device "
+                    "parameter pytrees differ across shards")
             if self.sample_ratio < 1.0:
                 raise ValueError(
                     "mixed-architecture cohorts require full "
@@ -373,6 +385,63 @@ def gout_update(favg, cnt, ok):
     return num / den[:, None].clamp_min(1.0)
 
 
+def _leaves(tree) -> list:
+    return [t for v in tree.values() for t in v.values()]
+
+
+def _rebuild(like, leaves):
+    """A tree of ``like``'s keys holding ``leaves`` in leaf order."""
+    it = iter(leaves)
+    return {k: {m: next(it) for m in v} for k, v in like.items()}
+
+
+def _pack(tensors, n: int):
+    """float32 tensors with n leading rows as one (n, F) block."""
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise ValueError(f"the sharded path gathers float32 rows, got "
+                             f"{t.dtype}")
+    return torch.cat([t.reshape(n, -1) for t in tensors], 1)
+
+
+def _split(flat, shapes, lead: tuple) -> list:
+    """``flat`` (*lead, F) cut into contiguous tensors of the per-row
+    ``shapes`` (a reduction over a strided view may sum in another order
+    than over the contiguous tensor the unsharded path holds)."""
+    out, i = [], 0
+    for shape in shapes:
+        n = 1
+        for d in shape:
+            n *= d
+        out.append(flat[..., i:i + n].reshape(tuple(lead) + tuple(shape))
+                   .contiguous())
+        i += n
+    return out
+
+
+def _tensordot(w, t):
+    return torch.tensordot(w, t, dims=1)
+
+
+def _bmm(w, t):
+    return torch.bmm(w[:, None], t.reshape(tuple(w.shape) + (-1,)))
+
+
+def weighted_avg_psum(stacked, weights, mesh):
+    """:func:`weighted_avg` on a ("data",) mesh: ``stacked`` and
+    ``weights`` are the whole (D, ...) arrays, as on every rank
+    (:meth:`GridShards.weighted_avg` with the unsharded tensordot)."""
+    return GridShards(mesh, 1, weights.shape[0]).weighted_avg(
+        stacked, weights, _tensordot)
+
+
+def gout_update_psum(favg, cnt, ok, mesh):
+    """:func:`gout_update` on a ("data",) mesh (:meth:`GridShards.
+    gout_update` with the unsharded einsum)."""
+    return GridShards(mesh, 1, cnt.shape[0]).gout_update(
+        favg, cnt, ok, "dc,dcm->cm")
+
+
 def _flat(params):
     return torch.cat([t.reshape(-1) for v in params.values()
                       for t in v.values()])
@@ -436,6 +505,13 @@ class FederatedTrainer:
         self._codec = fc.codec_spec()
         self._uplink_stage = make_uplink_stage(self._codec, fc.protocol)
         self._plan_cache = {}
+        # the sharded device axis: a ("data",) mesh over the round's
+        # cohort, not the pool (only the cohort's rows are trained)
+        self.mesh = None
+        if fc.shard_devices:
+            self.mesh = make_device_mesh(fc.cohort_size(),
+                                         fc.mesh_shards or None,
+                                         device=self.device)
 
     @property
     def local_trains(self) -> list:
@@ -519,6 +595,9 @@ class FederatedTrainer:
         architecture group in its own parameter space (device d keeps
         its ``dkeys[d]``) and reassembles the (D, C, C) tables."""
         fc = self.fc
+        if self.mesh is not None:
+            return self._train_sharded(dev_params, dev_x, dev_y, dkeys,
+                                       dev_gout, use_kd, n_local)
         if self._arch_trains is None:
             return self.local_train(dev_params, dev_x, dev_y, dkeys,
                                     dev_gout, use_kd, fc.eta, fc.beta,
@@ -533,6 +612,28 @@ class FederatedTrainer:
                 dev_params[arch], dev_x[idx], dev_y[idx], dkeys[idx],
                 dev_gout[idx], use_kd, fc.eta, fc.beta, n_local)
         return new, favg, cnt, mloss
+
+    def _train_sharded(self, dev_params, dev_x, dev_y, dkeys, dev_gout,
+                       use_kd, n_local):
+        """Local SGD of this rank's rows of the cohort (a captured step
+        of D/S rows), then one all-gather of every rank's trained rows,
+        tables and losses: the whole (D, ...) arrays on every rank."""
+        fc, C = self.fc, self.fc.num_classes
+        shards = GridShards(self.mesh, 1, dkeys.shape[0])
+        trained = None      # a rank beyond the mesh trains nothing
+        if shards.block is not None:
+            sl = shards.block[1]
+            new, favg, cnt, mloss = self.local_train(
+                {k: {m: t[sl] for m, t in v.items()}
+                 for k, v in dev_params.items()},
+                dev_x[sl], dev_y[sl], dkeys[sl], dev_gout[sl], use_kd,
+                fc.eta, fc.beta, n_local)
+            trained = _leaves(new) + [favg, cnt, mloss]
+        shapes = [t.shape[1:] for t in _leaves(dev_params)] + [
+            (C, C), (C,), ()]
+        *leaves, favg, cnt, mloss = [
+            t[0] for t in shards.gather(trained, shapes, dev_gout)]
+        return _rebuild(dev_params, leaves), favg, cnt, mloss
 
     def _convert(self, g_params, seeds, gout, key):
         """eq. (5): the K_s conversion steps of the server model, run as
@@ -561,7 +662,22 @@ class FederatedTrainer:
         ``_pending_link`` is a ``plan.dispatch`` handle of this round's
         link draw (the :class:`LoopRoundProgram` passes it), collected
         where the serial path would draw; it is dropped when the round
-        rebuilds the plan for another cohort size."""
+        rebuilds the plan for another cohort size.
+
+        With ``shard_devices`` the rank trains its rows and the two
+        aggregations reduce over the mesh; on a GPU the round runs under
+        cuDNN's deterministic algorithms."""
+        if self.mesh is None:
+            return self._round(state, dev_x, dev_y, test_x, test_y, plan,
+                               log, _pending_link)
+        # every rank computes the replicated steps (the conversion above
+        # all): deterministic algorithms keep the replicas equal
+        with deterministic_cudnn(self.device):
+            return self._round(state, dev_x, dev_y, test_x, test_y, plan,
+                               log, _pending_link)
+
+    def _round(self, state, dev_x, dev_y, test_x, test_y, plan, log,
+               _pending_link):
         fc = self.fc
         proto = fc.protocol
         D_pool, n_local = dev_x.shape[:2]
@@ -611,10 +727,14 @@ class FederatedTrainer:
         if proto == "fl":
             if up_ok.any():
                 w = ok.to(torch.float32) * n_local   # |S_d| weights
-                g_params = weighted_avg(dev_params_rx, w)
+                g_params = (weighted_avg(dev_params_rx, w)
+                            if self.mesh is None else
+                            weighted_avg_psum(dev_params_rx, w, self.mesh))
         else:
             if up_ok.any():
-                gout = gout_update(favg_rx, cnt, ok.to(torch.float32))
+                okf = ok.to(torch.float32)
+                gout = (gout_update(favg_rx, cnt, okf) if self.mesh is None
+                        else gout_update_psum(favg_rx, cnt, okf, self.mesh))
             if proto != "fd":
                 g_params = self._convert(g_params, seeds, gout,
                                          rng.fold_in(kr, 4))
@@ -807,6 +927,128 @@ class ArchTrain(NamedTuple):
     rows: dict
 
 
+def grid_weighted_avg(stacked, w):
+    """:func:`weighted_avg` of each point of a group: leaves (G, D, ...)
+    and weights (G, D) -> leaves (G, ...)."""
+    G, D = w.shape
+    wsum = w.sum(1).clamp_min(1e-9)
+    return {k: {m: (torch.bmm(w[:, None], t.reshape(G, D, -1))
+                    .reshape((G,) + tuple(t.shape[2:]))
+                    / wsum.reshape((-1,) + (1,) * (t.dim() - 2)))
+                for m, t in v.items()} for k, v in stacked.items()}
+
+
+def grid_gout_update(favg, cnt, ok):
+    """:func:`gout_update` of each point: (G, D, C, C), (G, D, C), (G, D)
+    -> (G, C, C)."""
+    cw = ok[..., None] * cnt                             # (G, D, C)
+    num = torch.einsum("gdc,gdcm->gcm", cw, favg)
+    return num / cw.sum(1)[..., None].clamp_min(1.0)
+
+
+class GridShards:
+    """A sweep group's three device-axis functions on a ("data",) or
+    ("grid", "data") mesh (``launch/mesh.py``), in place of the
+    :class:`GridRoundStep`'s defaults: the sharded forms the reference's
+    sweep engine ``shard_map``s.  At G = 1 on a ("data",) mesh it splits
+    the trainer's device axis (``shard_devices``).
+
+    A rank at mesh coordinate (gi, di) owns the points of grid block gi
+    and the device rows of data block di.  ``local_train`` trains that
+    block and gathers every rank's block (one all-gather), so the rest of
+    the round sees the whole (G, D, ...) arrays on every rank.
+    ``weighted_avg`` and ``gout_update`` sum over the block's rows (the
+    rest weigh zero, so the sums run the unsharded kernels on their
+    shapes), then all-reduce once: a point's sum adds only the partial
+    sums of its own grid block's data ranks (the reduction stays over
+    "data"; every other rank adds exact zeros).  A rank beyond the mesh
+    owns nothing and adds zeros."""
+
+    def __init__(self, mesh, G: int, D: int):
+        shape = tuple(mesh.shape)
+        self.gs, self.ds = (1,) * (2 - len(shape)) + shape
+        if G % self.gs or D % self.ds:
+            raise ValueError(f"a ({G}, {D}) group does not split over a "
+                             f"{self.gs}x{self.ds} mesh")
+        self.gb, self.db = G // self.gs, D // self.ds
+        c = mesh_coordinate(mesh)
+        self.block = None
+        if c is not None:
+            gi, di = (0,) * (2 - len(c)) + c
+            self.block = (slice(gi * self.gb, (gi + 1) * self.gb),
+                          slice(di * self.db, (di + 1) * self.db))
+
+    def gather(self, tensors, shapes, like):
+        """Every rank's block — ``tensors``, float32 with the block's
+        ``gb x db`` rows leading (None on a rank beyond the mesh) — as
+        whole (G, D, *shape) tensors of ``shapes`` on every rank: one
+        all-gather."""
+        n = self.gb * self.db
+        if tensors is None:
+            block = like.new_zeros(n, sum(int(np.prod(s)) for s in shapes))
+        else:
+            block = _pack(tensors, n)
+        g = all_gather_rows(block)[:self.gs * self.ds]
+        g = g.reshape(self.gs, self.ds, self.gb, self.db, -1)
+        G, D = self.gs * self.gb, self.ds * self.db
+        return _split(g.permute(0, 2, 1, 3, 4).reshape(G, D, -1), shapes,
+                      (G, D))
+
+    def mask(self, like):
+        """(G, D) ones on this rank's block, zeros elsewhere: the sums run
+        the unsharded kernels on their shapes, the other ranks' rows
+        weighing zero (``x + 0.0`` and ``0.0 * x`` are exact)."""
+        mask = like.new_zeros(self.gs * self.gb, self.ds * self.db)
+        if self.block is not None:
+            mask[self.block] = 1.0
+        return mask
+
+    def local_train(self, train, dev_params, dev_gout, rows, dkeys, use_kd):
+        """``train`` is the step's block trainer (:meth:`GridRoundStep.
+        _train`)."""
+        C = dev_gout.shape[-1]
+        trained = None
+        if self.block is not None:
+            new, favg, cnt, mloss = train(dev_params, dev_gout, rows, dkeys,
+                                          use_kd, self.block)
+            trained = _leaves(new) + [favg, cnt, mloss]
+        shapes = [t.shape[2:] for t in _leaves(dev_params)] + [
+            (C, C), (C,), ()]
+        *leaves, favg, cnt, mloss = self.gather(trained, shapes, dev_gout)
+        return _rebuild(dev_params, leaves), favg, cnt, mloss
+
+    def weighted_avg(self, stacked, w, dot=_bmm):
+        """The weighted model average over the device axis (the last of
+        ``w``: (D,) for the trainer, (G, D) for a sweep group): ``dot``,
+        the unsharded path's weighted sum (:func:`weighted_avg`'s
+        tensordot, :func:`grid_weighted_avg`'s bmm), and the weight sum
+        over this block's rows, then one all-reduce."""
+        lead = tuple(w.shape[:-1])
+        w = w * self.mask(w).reshape(w.shape)
+        leaves = _leaves(stacked)
+        shapes = [t.shape[w.dim():] for t in leaves]
+        flat = all_reduce_sum(torch.cat(
+            [w.sum(-1)[..., None]] +
+            [dot(w, t).reshape(lead + (-1,)) for t in leaves], -1))
+        wsum = flat[..., 0].clamp_min(1e-9)
+        return _rebuild(stacked, [
+            t / wsum.reshape(lead + (1,) * len(s))
+            for t, s in zip(_split(flat[..., 1:], shapes, lead), shapes)])
+
+    def gout_update(self, favg, cnt, ok, subscripts="gdc,gdcm->gcm"):
+        """eq. (2) over the device axis: the numerator (the unsharded
+        path's einsum ``subscripts``) and denominator over this block's
+        rows, then one all-reduce."""
+        lead, C = tuple(cnt.shape[:-2]), favg.shape[-1]
+        cw = ok[..., None] * cnt * self.mask(cnt).reshape(
+            cnt.shape[:-1])[..., None]
+        flat = all_reduce_sum(torch.cat(
+            [torch.einsum(subscripts, cw, favg).reshape(lead + (-1,)),
+             cw.sum(-2)], -1))
+        num = flat[..., :C * C].reshape(lead + (C, C))
+        return num / flat[..., C * C:][..., None].clamp_min(1.0)
+
+
 class GridRoundStep:
     """:func:`make_grid_round_step`'s callable: ``step(state, xs) ->
     (state, out)`` for one round of a sweep group.
@@ -814,14 +1056,20 @@ class GridRoundStep:
     ``local_trains`` holds an :class:`ArchTrain` (one, or one per
     architecture group of a mixed cohort) and ``conversion`` the
     :class:`OutputToModelSteps` of the FLD family (else None): each
-    keeps one captured step for the group."""
+    keeps one captured step for the group.  ``local_train_fn``,
+    ``weighted_avg_fn`` and ``gout_update_fn`` replace the device-axis
+    functions (the sweep engine passes a :class:`GridShards`'s on a
+    mesh); the defaults are the step's own block trainer over every
+    row, :func:`grid_weighted_avg` and :func:`grid_gout_update`."""
 
     def __init__(self, model, *, protocol: str, num_devices: int,
                  num_classes: int, local_iters: int, local_batch: int,
                  server_batch: int, t_max_slots: int, tau_s: float,
                  dev_x, dev_y, data_rows, test_x, test_y, consts: dict,
                  codec="identity", cohort_size: Optional[int] = None,
-                 arch_groups: Optional[list] = None):
+                 arch_groups: Optional[list] = None,
+                 local_train_fn=None, weighted_avg_fn=None,
+                 gout_update_fn=None):
         proto = canonical_protocol(protocol)
         D, C = num_devices, num_classes
         Dc = D if cohort_size is None else min(int(cohort_size), D)
@@ -865,20 +1113,41 @@ class GridRoundStep:
                            if proto in FLD_FAMILY else None)
         self.mixed = arch_groups is not None
         self.ref_model = groups[0][2]
+        if self.mixed and local_train_fn is not None:
+            raise ValueError(
+                "mixed-architecture cohorts are not supported on the "
+                "mesh-sharded path: per-device parameter pytrees differ "
+                "across shards")
+        self.local_train_fn = local_train_fn
+        self.weighted_avg_fn = weighted_avg_fn or grid_weighted_avg
+        self.gout_update_fn = gout_update_fn or grid_gout_update
 
-    def _train(self, dev_params, dev_gout, rows, dkeys, use_kd):
-        """Local SGD of every point's cohort: (params, favg, cnt, mloss)
-        in the (G, n, ...) layout."""
+    def _train(self, dev_params, dev_gout, rows, dkeys, use_kd, block=None):
+        """Local SGD of every point's cohort, or with ``block`` (a slice
+        of the points, a slice of the devices) of that block's rows only:
+        (params, favg, cnt, mloss) in the (G, n, ...) layout of the
+        block."""
         G, Dc, C = self.G, self.Dc, self.C
         if not self.mixed:
             at = self.local_trains[0]
+            pts = dvs = slice(None)
+            rw = {k: at.rows[k] for k in ("eta", "beta", "n_local")}
+            if block is not None:
+                pts, dvs = block
+                dev_params = {k: {m: t[pts, dvs] for m, t in v.items()}
+                              for k, v in dev_params.items()}
+                dev_gout, rows, dkeys = (dev_gout[pts, dvs], rows[pts, dvs],
+                                         dkeys[pts, dvs])
+                rw = {k: r.view(G, Dc)[pts, dvs].reshape(-1)
+                      for k, r in rw.items()}
+            Gb, n = dkeys.shape[:2]
             new, favg, cnt, mloss = at.train(
                 _rows_of(dev_params), self.dev_x, self.dev_y,
                 dkeys.reshape(-1, 2), dev_gout.reshape(-1, C, C), use_kd,
-                at.rows["eta"], at.rows["beta"], at.rows["n_local"],
+                rw["eta"], rw["beta"], rw["n_local"],
                 rows=rows.reshape(-1))
-            return (_points_of(new, Dc), favg.view(G, Dc, C, C),
-                    cnt.view(G, Dc, C), mloss.view(G, Dc))
+            return (_points_of(new, n), favg.view(Gb, n, C, C),
+                    cnt.view(Gb, n, C), mloss.view(Gb, n))
         dev = dev_gout.device
         favg = torch.zeros(G, Dc, C, C, device=dev)
         cnt = torch.zeros(G, Dc, C, device=dev)
@@ -917,8 +1186,12 @@ class GridRoundStep:
 
         # ---- local updates (eq. 1 / 3): one captured step a group ----
         dkeys = rng.split(rng.fold_in(kr, 1), Dc)            # (G, Dc, 2)
-        dev_params, favg, cnt, mloss = self._train(dev_params, dev_gout,
-                                                   rows, dkeys, use_kd)
+        if self.local_train_fn is None:
+            dev_params, favg, cnt, mloss = self._train(
+                dev_params, dev_gout, rows, dkeys, use_kd)
+        else:
+            dev_params, favg, cnt, mloss = self.local_train_fn(
+                self._train, dev_params, dev_gout, rows, dkeys, use_kd)
 
         # ---- channel: every point's draw at once ----
         link = round_trip_traced(rng.fold_in(kr, 3), consts["p_up"],
@@ -946,17 +1219,10 @@ class GridRoundStep:
         g_params, gout = state.g_params, state.gout
         if proto == "fl":
             w = okf * consts["n_local"].to(torch.float32)[:, None]
-            wsum = w.sum(1).clamp_min(1e-9)
-            new_g = {k: {m: (torch.bmm(w[:, None], t.reshape(G, Dc, -1))
-                             .reshape((G,) + tuple(t.shape[2:]))
-                             / wsum.reshape((-1,) + (1,) * (t.dim() - 2)))
-                         for m, t in v.items()}
-                     for k, v in dev_params_rx.items()}
+            new_g = self.weighted_avg_fn(dev_params_rx, w)
             g_params = _where_points(any_up, new_g, g_params)
         else:
-            cw = okf[..., None] * cnt                        # (G, Dc, C)
-            num = torch.einsum("gdc,gdcm->gcm", cw, favg_rx)
-            new_gout = num / cw.sum(1)[..., None].clamp_min(1.0)
+            new_gout = self.gout_update_fn(favg_rx, cnt, okf)
             gout = torch.where(any_up[:, None, None], new_gout, gout)
             if proto != "fd":
                 g_params, _ = self.conversion(
@@ -1044,6 +1310,10 @@ def make_grid_round_step(model, **kw) -> GridRoundStep:
     ``levels``, ``noise`` and ``clip``.  A round's ``xs``: ``p`` (int),
     ``up_slots``/``dn_slots`` (G,), ``conv_keys`` (G, K_max, 2) and,
     sampled, ``cohort`` (G, Dc).
+
+    ``local_train_fn``, ``weighted_avg_fn`` and ``gout_update_fn`` (a
+    :class:`GridShards`'s, on a mesh) replace the step's device-axis
+    functions, as the reference's hooks do.
 
     State: a :class:`RoundState` with ``dev_params`` leaves (G, D, ...)
     (per architecture in a mixed cohort), ``g_params`` (G, ...), ``gout``

@@ -45,7 +45,6 @@ restore of the halfway checkpoint whose tail must equal the first run's)::
 from __future__ import annotations
 
 import argparse
-import contextlib
 import tempfile
 from typing import Optional
 
@@ -60,7 +59,7 @@ from ..core.protocols import FederatedConfig, FederatedTrainer
 from ..core.sampling import ChurnConfig
 from ..core.seed_prep import summarize_seeds
 from ..core.state import RoundState
-from ..device import resolve_device
+from ..device import deterministic_cudnn, resolve_device
 
 __all__ = ["ChurnConfig", "FederatedService", "InferenceEndpoint"]
 
@@ -68,20 +67,6 @@ __all__ = ["ChurnConfig", "FederatedService", "InferenceEndpoint"]
 #: stay out of the checkpoint meta).
 _RECORD_KEYS = ("round", "acc", "loss", "round_latency_s", "compute_s",
                 "cum_time_s", "uplink_ok", "n_straggle")
-
-
-@contextlib.contextmanager
-def _deterministic(device):
-    """cuDNN's deterministic algorithms on a CUDA device for the block."""
-    if device.type != "cuda":
-        yield
-        return
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = saved
 
 
 def _map(fn, tree):
@@ -254,7 +239,7 @@ class FederatedService:
             dev_params=_map(lambda t: t[jdx], state.dev_params),
             dev_gout=state.dev_gout[jdx])
         plan = self.trainer.link_plan(state.g_params, n_links=len(idx))
-        with _deterministic(self.device):
+        with deterministic_cudnn(self.device):
             cohort, rec = self._program.step(
                 cohort, {"dev_x": pool_x[jdx], "dev_y": pool_y[jdx],
                          "test_x": test_x, "test_y": test_y, "plan": plan,

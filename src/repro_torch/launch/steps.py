@@ -10,7 +10,8 @@ names may share a stack (``launch/train.py``'s server stack and pod
 stack) without one's update reaching the other.  Where the reference
 vmaps over pods, the port loops over them; no step reduces across pods
 except the FD sync's (NB, NB) uplink mean and the FL sync's parameter
-mean.
+mean; across ranks, :func:`make_fd_sync_step_shardmap` holds one pod a
+rank and all-reduces only that mean.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from ..models import kvcache
 from ..models.layers import checkpointed
 from ..models.transformer import (forward, tree_leaves, tree_map,
                                   unembed_matrix)
+from .mesh import all_reduce_sum
 
 
 # ---------------------------------------------------------------------------
@@ -263,10 +265,25 @@ def make_fd_sync_step(cfg, n_pods: int, ks_iters: int = 4):
 
 
 def make_fd_sync_step_shardmap(cfg, mesh, ks_iters: int = 4):
-    """The reference's shard_map variant over a "pod" mesh axis."""
-    raise NotImplementedError(
-        "the shard_map FD sync over a pod mesh is not ported yet: "
-        "ROADMAP A13")
+    """:func:`make_fd_sync_step` with one pod a rank of ``mesh`` (a
+    DeviceMesh whose ranks are the pods, ``launch/mesh.py``): each rank
+    passes its own pod's slice, leaves with a leading axis of 1.  The
+    one cross-pod collective is the mean of the (NB, NB) uplink tables,
+    an all-reduce divided by the pod count; each rank then converts its
+    own replica with ``make_fd_sync_step(cfg, n_pods=1)``.  Returns
+    (this pod's new params, leading axis 1; gout (1, NB, NB))."""
+    inner = make_fd_sync_step(cfg, n_pods=1, ks_iters=ks_iters)
+    n_pods = mesh.size()
+
+    def fd_sync(pod_params, pod_favg, seed_batch):
+        if pod_favg.shape[0] != 1:
+            raise ValueError(f"each rank holds one pod: favg has "
+                             f"{pod_favg.shape[0]}")
+        gout = all_reduce_sum(pod_favg[0].clone()) / n_pods  # the uplink
+        new_pp, _ = inner(pod_params, gout[None], seed_batch)
+        return new_pp, gout[None]
+
+    return fd_sync
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 The model calls ``constrain(x, kind)`` where the reference constrains
 its activations' sharding.  On one GPU nothing is installed and it is
-the identity; the multi-GPU slice (ROADMAP A13) installs a function
-through :func:`set_activation_sharding`.
+the identity; the LM sharding rules (``activation_constrainer``, with
+the dry run) will install a function through
+:func:`set_activation_sharding`.
 
 kinds: resid (B,S,D) | heads (B,S,H,d) | kv (B,S,Hkv,d) | logits (B,S,V)
        scores_seq (B,Hkv,G,T,S) | ssm_inner (B,S,H,P)

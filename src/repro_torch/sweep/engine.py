@@ -25,13 +25,22 @@ group's distinct partitions (ragged ``n_local`` padded, the per-row
 ``n_local`` bounding every batch draw); points that share one index it
 without a copy.
 
+Across ranks (``launch/mesh.py``): a grid of ``shard_devices`` points
+splits each group's device axis over a ("data",) mesh, and
+``ProgramOptions(mesh_shape=(gs, ds))`` lays each group on a ("grid",
+"data") mesh, the shape a budget re-fitted per group to the largest
+divisors of its G and cohort size that fit it and the world size.  A
+rank trains its block of points and device rows
+(:class:`~repro_torch.core.protocols.GridShards`); every reduction stays
+over "data", and the rest of a round runs on each rank alike, under
+cuDNN's deterministic algorithms on a GPU.
+
 ``run_pointwise`` is the per-point ``FederatedTrainer.run`` loop the
-sweep replaces, and its equivalence oracle.  Not ported: the
-``shard_devices`` device mesh and a grid ``mesh_shape`` (ROADMAP A13)
-raise NotImplementedError.
+sweep replaces, and its equivalence oracle.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -43,12 +52,14 @@ from .. import rng
 from ..channel.payload import round_slot_plan
 from ..core.privacy import GaussianAccountant, gaussian_epsilon
 from ..core.program import GridRoundProgram, ProgramOptions
-from ..core.protocols import (FLD_FAMILY, FederatedTrainer,
+from ..core.protocols import (FLD_FAMILY, FederatedTrainer, GridShards,
                               make_grid_round_step)
 from ..core.seed_prep import SeedPrepMemo, prepare_seeds
 from ..core.state import RoundState
 from ..data.pipeline import parse_task
-from ..device import resolve_device
+from ..device import deterministic_cudnn, resolve_device
+from ..launch.mesh import (_largest_divisor, make_device_mesh,
+                           make_grid_mesh, world_size)
 from ..registry import MODELS, TASKS
 from .axes import SweepGrid
 from .results import SweepResult
@@ -259,17 +270,31 @@ class _ProtocolProgram:
                  test_x, test_y, memo: SeedPrepMemo, device,
                  codec: str = "identity", cohort_size: Optional[int] = None,
                  arch_models: Optional[list] = None,
-                 options: Optional[ProgramOptions] = None):
+                 options: Optional[ProgramOptions] = None, mesh=None):
         engine_stats.programs += 1
         dev = device
         fc0, ch0 = grid.points[idxs[0]]
         self.idxs = idxs
         self.codec = codec
+        options = options or ProgramOptions()
         points = [grid.points[i] for i in idxs]
         G, D, C, R = len(idxs), fc0.num_devices, fc0.num_classes, \
             fc0.max_rounds
         Dc = D if cohort_size is None else min(int(cohort_size), D)
         sampled = Dc < D
+        if options.mesh_shape is not None:
+            # the (grid, data) mesh: the requested shape is a budget,
+            # re-fitted to this group's G and cohort and the world size
+            avail = world_size()
+            gs = _largest_divisor(G, min(options.mesh_shape[0], avail))
+            ds = _largest_divisor(Dc, min(options.mesh_shape[1],
+                                          avail // gs))
+            mesh = make_grid_mesh(G, Dc, shape=(gs, ds), device=dev)
+        elif sampled and mesh is not None:
+            # the mesh spans the cohort, as the sampled trainer's
+            mesh = make_device_mesh(Dc, fc0.mesh_shards or None, device=dev)
+        self.mesh = mesh
+        self.mesh_shape = tuple(mesh.shape) if mesh is not None else None
         dev_x, dev_y, data_rows, n_local = _stack_partitions(parts)
         rng.check_span(0, int(n_local.max()))  # the local batch-draw bound
         feat = tuple(dev_x.shape[2:])
@@ -386,13 +411,19 @@ class _ProtocolProgram:
                     torch.int64)
             self.xs.append(x)
 
+        fns = {}
+        if mesh is not None:
+            shards = GridShards(mesh, G, Dc)
+            fns = dict(local_train_fn=shards.local_train,
+                       weighted_avg_fn=shards.weighted_avg,
+                       gout_update_fn=shards.gout_update)
         self.step = make_grid_round_step(
             model, protocol=proto, num_devices=D, num_classes=C,
             local_iters=fc0.local_iters, local_batch=fc0.local_batch,
             server_batch=fc0.server_batch, t_max_slots=ch0.t_max_slots,
             tau_s=ch0.tau_s, dev_x=dev_x, dev_y=dev_y, data_rows=data_rows,
             test_x=test_x, test_y=test_y, consts=consts, codec=codec,
-            cohort_size=Dc, arch_groups=arch_models)
+            cohort_size=Dc, arch_groups=arch_models, **fns)
 
         if arch_models is None:
             dev_params0 = _broadcast(g_params, D)
@@ -423,9 +454,13 @@ class _ProtocolProgram:
         return gs + (conv.graphs if conv is not None else [])
 
     def start(self):
-        """Queue the group's rounds (nothing is read back)."""
+        """Queue the group's rounds (nothing is read back).  On a mesh,
+        each rank computes the replicated steps: under cuDNN's
+        deterministic algorithms, so the replicas stay equal."""
         self._built = len(self.graphs)
-        self.program.step(self.state0, self.xs)
+        with (deterministic_cudnn(self.state0.gout.device)
+              if self.mesh is not None else contextlib.nullcontext()):
+            self.program.step(self.state0, self.xs)
 
     def finish(self):
         """Wait for them: ``(state, {name: (R, G) array})``."""
@@ -449,10 +484,6 @@ class SweepRunner:
                  options: Optional[ProgramOptions] = None, device=None):
         fc0, ch0 = grid.points[0]
         self.options = options or ProgramOptions()
-        if self.options.mesh_shape is not None:
-            raise NotImplementedError(
-                "the (grid, device) mesh of the sweep engine is not "
-                "ported yet (ROADMAP A13)")
         if ch0.num_devices != fc0.num_devices:
             raise ValueError(
                 f"channel simulates {ch0.num_devices} links but the "
@@ -500,6 +531,10 @@ class SweepRunner:
             return moved[id(pair[0])]
 
         self.partitions = [on_device(pair) for pair in parts]
+        # the 1-D device mesh of shard_devices grids (a group's mesh_shape
+        # option, when given, takes its place)
+        self.mesh = (make_device_mesh(D, fc0.mesh_shards or None, device=dev)
+                     if fc0.shard_devices else None)
 
         memo = SeedPrepMemo()
         self._programs = []
@@ -515,7 +550,7 @@ class SweepRunner:
                 self._tensor(tx, torch.float32),
                 self._tensor(ty, torch.int64), memo, dev, codec=codec,
                 cohort_size=csize, arch_models=arch_models,
-                options=self.options)
+                options=self.options, mesh=self.mesh)
             self._programs.append((proto, idxs, prog))
         self.programs = len(self._programs)
 

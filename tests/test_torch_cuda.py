@@ -1124,3 +1124,105 @@ def test_transformer_classifier_run_on_gpu_matches_cpu(gpu):
     np.testing.assert_allclose(hs[0]["loss"], hs[1]["loss"], atol=1e-4)
     np.testing.assert_allclose(hs[0]["acc"], hs[1]["acc"], atol=1e-4)
     assert hs[0]["uplink_ok"] == hs[1]["uplink_ok"]
+
+
+# ---------------------------------------------------------------------------
+# The sharded round loop (A13): one NCCL rank, and two gloo ranks sharing
+# the card
+# ---------------------------------------------------------------------------
+
+SHARD_CFG = dict(protocol="mix2fld", num_devices=4, local_iters=8,
+                 local_batch=16, server_iters=8, server_batch=16,
+                 max_rounds=3, n_seed=6, n_inverse=12, seed=0)
+
+
+def _shard_data():
+    x, y = synthetic_images(rng.PRNGKey(42, "cpu"), 1400, device="cpu")
+    dev_x, dev_y = partition_iid(x[:1200].numpy(), y[:1200].numpy(), 4,
+                                 300, 10, seed=0)
+    return (np.asarray(dev_x), np.asarray(dev_y), x[1200:].numpy(),
+            y[1200:].numpy())
+
+
+def _vmapped_deterministic(gpu, data, emulate=False):
+    """The vmapped run under deterministic cuDNN; with ``emulate``, the
+    2 ranks' step shape and partial sums emulated in this process
+    (``emulated_shards``); the history, last tables and rounds."""
+    import contextlib
+
+    from repro_torch.device import deterministic_cudnn
+    from repro_torch.launch.ranks import emulated_shards, record_rounds
+    with deterministic_cudnn(gpu):
+        tr = FederatedTrainer(CNN(), FederatedConfig(**SHARD_CFG),
+                              ChannelConfig(num_devices=4, p_up_dbm=40.0),
+                              device=gpu)
+        rounds = record_rounds(tr)
+        with (emulated_shards(tr, 2) if emulate else
+              contextlib.nullcontext()):
+            h = tr.run(*data)
+    return h, tr.last_dev_gout.cpu().numpy(), rounds
+
+
+def test_sharded_trainer_on_one_nccl_rank_equals_vmapped(gpu):
+    """``shard_devices=True`` in a plain process starts a one-rank NCCL
+    group: bit for bit the vmapped run (both under cuDNN's deterministic
+    algorithms, which the sharded path uses), the kernels launched as
+    there."""
+    import torch.distributed as dist
+    data = _shard_data()
+    want, want_gout, _ = _vmapped_deterministic(gpu, data)
+    started = not dist.is_initialized()
+    try:
+        tr = FederatedTrainer(CNN(), FederatedConfig(shard_devices=True,
+                                                     **SHARD_CFG),
+                              ChannelConfig(num_devices=4, p_up_dbm=40.0),
+                              device=gpu)
+        assert dist.get_backend() == "nccl" and tuple(tr.mesh.shape) == (1,)
+        runtime.reset_launch_counts()
+        got = tr.run(*data)
+        counts = runtime.launch_counts()
+        for k in ("acc", "loss", "round_latency_s", "uplink_ok",
+                  "converged_round"):
+            assert got[k] == want[k], k
+        np.testing.assert_array_equal(tr.last_dev_gout.cpu().numpy(),
+                                      want_gout)
+        assert counts["distill_step"] == 3 * 8 and counts["mixup"] >= 1
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_sharded_trainer_on_two_gloo_ranks_sharing_the_card(gpu, tmp_path):
+    """Two spawned ranks on cuda:0 with gloo on CUDA tensors, 2 rows a
+    rank: within the reference's multichip bounds of the vmapped run,
+    bit for bit the vmapped run with the ranks' step shape and partial
+    sums emulated, and every rank's replicated state equal at each
+    round's end."""
+    from torch_ranks import spawn, trainer_runs
+    data = _shard_data()
+    want, want_gout, _ = _vmapped_deterministic(gpu, data)
+    emu, emu_gout, emu_rounds = _vmapped_deterministic(gpu, data, True)
+    outs = spawn(trainer_runs, 2, tmp_path,
+                 [(SHARD_CFG, dict(num_devices=4, p_up_dbm=40.0), data)],
+                 "cuda")
+    for out in outs:
+        got = out[0]
+        assert got["mesh"] == (2,) and got["step_rows"] == [2]
+        assert got["launches"]["distill_step"] == 3 * 8
+        np.testing.assert_allclose(got["history"]["acc"], want["acc"],
+                                   rtol=0, atol=1e-4)
+        np.testing.assert_allclose(got["history"]["loss"], want["loss"],
+                                   rtol=0, atol=1e-4)
+        for k in ("round_latency_s", "uplink_ok", "converged_round"):
+            assert got["history"][k] == want[k], k
+        np.testing.assert_allclose(got["last_dev_gout"], want_gout, rtol=0,
+                                   atol=1e-5)
+        for k, v in got["history"].items():
+            assert v == emu[k], k
+        np.testing.assert_array_equal(got["last_dev_gout"], emu_gout)
+        for a, b in zip(got["rounds"], emu_rounds):
+            np.testing.assert_array_equal(a["g_params"], b["g_params"])
+            np.testing.assert_array_equal(a["dev_gout"], b["dev_gout"])
+    for a, b in zip(outs[0][0]["rounds"], outs[1][0]["rounds"]):
+        np.testing.assert_array_equal(a["g_params"], b["g_params"])
+        np.testing.assert_array_equal(a["dev_gout"], b["dev_gout"])

@@ -1,5 +1,5 @@
 """The slice as a whole, Mix2FLD (see test_torch_protocols_a), the
-port's config refusals for what it does not run yet, and the churn and
+port's config validation against the reference's, and the churn and
 straggler configs, which it runs (a round of each against the
 reference's)."""
 import numpy as np
@@ -24,16 +24,30 @@ def test_mix2fld_run_matches_live_reference():
 
 @pytest.mark.parametrize("make,kw", [
     (FederatedConfig, dict(shard_devices=True)),
-    # the transformer classifier runs since A15-train; the mesh-sharded
-    # device axis (A13) refuses it as it refuses every model
+    # the transformer classifier runs on the sharded path as every
+    # homogeneous cohort does; a mixed cohort cannot be sharded
     (FederatedConfig, dict(model="transformer", shard_devices=True)),
     (FederatedConfig, dict(model="cnn+transformer", protocol="fd",
                            shard_devices=True)),
     (FederatedConfig, dict(model_partition=("cnn", "tf"), num_devices=2,
                            protocol="fd", shard_devices=True))])
 def test_config_refuses_what_the_slice_does_not_run(make, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make(**kw)
+    """``shard_devices=True`` (A13) constructs as the reference's does;
+    a mixed-architecture cohort raises the reference's ValueError (its
+    per-device parameter trees differ across shards)."""
+    ref = load_reference().protocols
+    mixed = "+" in kw.get("model", "") or "model_partition" in kw
+    if mixed:
+        msg = "mixed-architecture cohorts are not supported on the mesh"
+        with pytest.raises(ValueError, match=msg):
+            ref.FederatedConfig(**kw)
+        with pytest.raises(ValueError, match=msg):
+            make(**kw)
+        return
+    want, got = ref.FederatedConfig(**kw), make(**kw)
+    assert got.shard_devices and want.shard_devices
+    assert (got.model, got.model_partition, got.mesh_shards) == \
+        (want.model, want.model_partition, want.mesh_shards)
 
 
 @pytest.mark.parametrize("kw", [

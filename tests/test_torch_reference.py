@@ -3,7 +3,8 @@
 ``load_reference()`` imports the JAX package's round loop, models and
 their registry, data, sampling, codecs and privacy, LM stack (dense,
 MoE and Mamba2), serve and train entry points, optimizers, kernels,
-round program, checkpoint, service and sweep engine for the
+round program, checkpoint, service, sweep engine, roofline, meshes and
+sharding rules for the
 ``tests/test_torch_*.py`` files.  Under the installed jax ``repro.models.transformer`` cannot be
 imported: its guard runs
 ``_obar_p not in _batching.primitive_batchers`` and jax 0.9's
@@ -75,6 +76,9 @@ _MODULES = {
     "sweep_axes": "repro.sweep.axes",
     "sweep_engine": "repro.sweep.engine",
     "sweep_results": "repro.sweep.results",
+    "roofline": "repro.roofline.analysis",
+    "mesh": "repro.launch.mesh",
+    "sharding": "repro.launch.sharding",
 }
 
 

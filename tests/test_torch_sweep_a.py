@@ -18,6 +18,7 @@ from repro_torch.sweep import (CH_SWEEPABLE, FED_SWEEPABLE, SweepRunner,
                                run_sweep)
 from test_torch_reference import golden_data
 from test_torch_reference import one_thread_per_module  # noqa: F401
+from torch_ranks import one_rank_group  # noqa: F401
 
 CH = ChannelConfig(num_devices=4, p_up_dbm=40.0)
 
@@ -75,18 +76,29 @@ def test_sweep_matches_loop_2x3(data):
 
 
 @pytest.mark.parametrize("where", ["config", "mesh_shape"])
-def test_sharded_grids_name_a13(data, where):
-    """The reference's shard_devices sweeps (and its 2-D grid mesh) are
-    not ported: they raise naming ROADMAP A13."""
-    with pytest.raises(NotImplementedError, match="A13"):
-        if where == "config":
-            make_grid(_base(shard_devices=True), CH, eta=(0.01, 0.02))
-        else:
-            SweepRunner(CNN(), make_grid(_base(), CH, eta=(0.01,)), *data,
-                        options=ProgramOptions(mesh_shape=(2, 1)),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        GridRoundProgram(None, {}, ProgramOptions(mesh_shape=(1, 1)))
+def test_sharded_grids_name_a13(data, where, one_rank_group):
+    """The reference's shard_devices sweeps and its 2-D grid mesh (A13)
+    run: on one rank, a ``shard_devices`` grid puts its device axis on a
+    one-shard ("data",) mesh and equals the per-point sharded loop
+    (``tests/test_sweep.py:78-90``); a ``mesh_shape`` request fits to
+    (1, 1) and equals the vmapped sweep bit for bit."""
+    if where == "config":
+        grid = make_grid(_base(shard_devices=True), CH, eta=(0.01, 0.02))
+        runner = SweepRunner(CNN(), grid, *data, device="cpu")
+        assert tuple(runner.mesh.shape) == (1,)
+        assert_equivalent(runner.run(),
+                          run_pointwise(CNN(), grid, *data, device="cpu"))
+        return
+    grid = make_grid(_base(), CH, eta=(0.01, 0.02))
+    runner = SweepRunner(CNN(), grid, *data, device="cpu",
+                         options=ProgramOptions(mesh_shape=(2, 1)))
+    assert runner.mesh is None
+    assert [p.mesh_shape for _, _, p in runner.groups] == [(1, 1)]
+    got, want = runner.run(), run_sweep(CNN(), grid, *data, device="cpu")
+    np.testing.assert_array_equal(got.acc, want.acc)
+    np.testing.assert_array_equal(got.loss, want.loss)
+    prog = GridRoundProgram(None, {}, ProgramOptions(mesh_shape=(1, 1)))
+    assert prog.options.mesh_shape == (1, 1)
 
 
 def test_sweep_matches_loop_fl_channel_axis(data):

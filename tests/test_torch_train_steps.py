@@ -27,8 +27,10 @@ import torch
 from repro_torch import configs, optim, rng
 from repro_torch.core import outputs
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import attention, transformer
 from test_torch_reference import load_reference, one_thread_per_module  # noqa: F401
+from torch_ranks import one_rank_group  # noqa: F401
 
 LOGIT_ATOL = 1e-4
 LOSS_ATOL = 1e-5
@@ -504,6 +506,28 @@ def test_favg_step_rows_are_distributions(arch):
     np.testing.assert_allclose(sums[nz], 1.0, atol=1e-4)
 
 
-def test_shardmap_sync_waits_for_a13():
-    with pytest.raises(NotImplementedError, match="A13"):
-        steps.make_fd_sync_step_shardmap(_cfg(), None)
+def test_shardmap_sync_waits_for_a13(one_rank_group):
+    """The shard-mapped FD sync (A13) on a one-rank pod mesh: the pods'
+    mean over one pod is its own table, and the pod converts as
+    ``make_fd_sync_step(cfg, n_pods=1)`` does, bit for bit.  Two ranks
+    against the vmapped sync and the reference are in
+    ``test_torch_sharded_sweep.py``."""
+    cfg = _cfg()
+    _, p = _params(cfg)
+    pod_in = steps.tree_map(lambda t: t[None], p)
+    favg = torch.softmax(torch.randn(
+        1, cfg.fd_buckets, cfg.fd_buckets,
+        generator=torch.Generator().manual_seed(2)), -1)
+    batch = {"tokens": torch.tensor(_tokens(cfg, (4, 32), seed=3))}
+    mesh = make_mesh((1,), ("pod",), device="cpu")
+    got_p, got_g = steps.make_fd_sync_step_shardmap(cfg, mesh, ks_iters=2)(
+        pod_in, favg, batch)
+    want_p, want_g = steps.make_fd_sync_step(cfg, 1, ks_iters=2)(
+        pod_in, favg, batch)
+    assert torch.equal(got_g[0], want_g) and torch.equal(got_g, favg)
+    for a, b in zip(steps.tree_leaves(got_p), steps.tree_leaves(want_p)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="one pod"):
+        steps.make_fd_sync_step_shardmap(cfg, mesh)(
+            steps.tree_map(lambda t: t.expand(2, *t.shape[1:]), pod_in),
+            favg.expand(2, -1, -1), batch)
