@@ -7,9 +7,9 @@ The registry holds every architecture of the reference: ``qwen2-0.5b``,
 ``qwen2-moe-a2.7b``, ``deepseek-v2-236b``, ``qwen2-vl-72b``,
 ``whisper-medium``, ``mamba2-370m`` and ``zamba2-2.7b`` (the LM serve
 and train paths) and ``paper-cnn`` (the paper's own model, whose layer
-constants live in ``configs/paper_cnn.py``).  The dry-run
-``input_specs`` wait for ``launch/dryrun.py``, which comes with the LM
-sharding rules of ``launch/sharding.py`` (the roofline is ported).
+constants live in ``configs/paper_cnn.py``).  :func:`input_specs` gives
+the inputs of each input shape's step as meta tensors, for the dry run
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -230,3 +230,46 @@ def _ensure_loaded() -> None:
                    mamba2_370m, paper_cnn, phi3_mini_3_8b, qwen2_0_5b,
                    qwen2_moe_a2_7b, qwen2_vl_72b, qwen3_14b,
                    whisper_medium, zamba2_2_7b)
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs (meta tensors: shapes and dtypes, no allocation)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
+    """Meta tensors for every input of the step that ``shape_name``
+    runs (the train, prefill or decode step), the reference's
+    ``input_specs``.  A decode shape holds the cache, its write pointer
+    ``pos`` in it."""
+    import torch
+
+    from ..models import kvcache   # lazy: avoid an import cycle
+
+    shp = INPUT_SHAPES[shape_name]
+    B, S = shp.global_batch, shp.seq_len
+    dt = getattr(torch, cfg.param_dtype)
+
+    def spec(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    specs: dict = {}
+    if shp.kind in ("train", "prefill"):
+        if cfg.embed_input:
+            specs["embeds"] = spec((B, S, cfg.d_model), dt)
+            specs["labels"] = spec((B, S))
+        else:
+            specs["tokens"] = spec((B, S))
+        if cfg.cross_attention:
+            specs["enc_out"] = spec((B, cfg.encoder_seq, cfg.d_model), dt)
+        if shp.kind == "train":
+            # the Mix2FLD KD target: one fd_buckets-wide distribution a
+            # ground-truth bucket
+            specs["gout"] = spec((cfg.fd_buckets, cfg.fd_buckets),
+                                 torch.float32)
+    else:   # decode: one new token against a seq_len cache
+        if cfg.embed_input:
+            specs["embeds"] = spec((B, 1, cfg.d_model), dt)
+        else:
+            specs["tokens"] = spec((B, 1))
+        specs["cache"] = kvcache.cache_specs(cfg, B, S)
+    return specs

@@ -29,7 +29,8 @@ from itertools import product
 
 import torch
 
-from .runtime import CudaKernel, on_cuda, refuse_grad, require
+from .runtime import (CudaKernel, is_sharded, on_cuda, on_local_rows,
+                      refuse_grad, require, shapes_only)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILED = (32, 64, 80, 96, 120, 128)   # the tensor-core tiles' head dims
@@ -90,6 +91,10 @@ def flash_attention(q, k, v, window=None):
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     require(window is None or int(window) >= 1,
             f"flash_attention window must be None or >= 1, got {window}")
+    if is_sharded(q):   # every (batch, head) row on its own
+        return on_local_rows(flash_attention, q, k, v, window=window)
+    if shapes_only(q, k, v):
+        return q.new_empty(q.shape[:2] + v.shape[2:])
     if not on_cuda(q, k, v):
         return attention_plain(q, k, v, window)
     refuse_grad("flash_attention", q, k, v)

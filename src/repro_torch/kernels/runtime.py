@@ -15,6 +15,12 @@ backward: :func:`records_grad` says whether autograd would record a
 call, and their callers take the differentiable PyTorch math when it
 does (``models/attention.py``, ``models/mamba2.py``), while the kernels'
 wrappers refuse such a call (:func:`refuse_grad`).
+
+Sharded operands (DTensors, the sharding rules of ``launch/
+sharding.py``) go through :func:`on_local_rows`: a kernel that computes
+each row of its leading dim on its own runs on every rank's block of
+rows.  Tensors on the meta device (the dry run's shapes) take only the
+kernel's output allocation (:func:`shapes_only`).
 """
 from __future__ import annotations
 
@@ -159,6 +165,49 @@ def on_cuda(*tensors) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel for tensors on {dev}")
+
+
+def shapes_only(*tensors) -> bool:
+    """True if every tensor lies on the meta device: a wrapper then
+    allocates its outputs and computes nothing (the dry run measures
+    shapes, bytes and collectives, not values)."""
+    return all(t.is_meta for t in tensors)
+
+
+def is_sharded(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def on_local_rows(fn, *tensors, **kwargs):
+    """``fn(*tensors, **kwargs)`` for DTensor operands whose rows (the
+    leading dim, of one size in every operand and output) are computed
+    independently: each mesh dim keeps its ``Shard(0)`` where every
+    operand has it and is replicated otherwise (the collectives of that
+    redistribution are the sharding's cost), ``fn`` runs on each rank's
+    local block, and its outputs come back as DTensors of the same
+    placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = tensors[0].device_mesh
+    rows = tensors[0].shape[0]
+    require(all(isinstance(t, DTensor) and t.device_mesh == mesh
+                and t.shape[0] == rows for t in tensors),
+            "on_local_rows takes DTensors on one mesh with one row count")
+    place = tuple(
+        Shard(0) if all(t.placements[j] == Shard(0) for t in tensors)
+        else Replicate() for j in range(mesh.ndim))
+    out = fn(*(t.redistribute(mesh, place).to_local() for t in tensors),
+             **kwargs)
+
+    def wrap(o):
+        shape = (rows,) + tuple(o.shape[1:])
+        return DTensor.from_local(o.contiguous(), mesh, place,
+                                  run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
 def records_grad(*tensors) -> bool:

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from .runtime import CudaKernel, on_cuda, refuse_grad, require
+from .runtime import CudaKernel, on_cuda, refuse_grad, require, shapes_only
 
 #: (P, N) pairs the kernel is built for: the reference's kernel tests,
 #: the smoke configs, mamba2-370m and zamba2-2.7b at full width
@@ -93,6 +93,10 @@ def ssd_scan(xdt, Bh, Ch, dA, chunk: int, final: bool = False,
             or tuple(initial_state.shape) == (bh, n, p),
             f"ssd_scan initial state must be {(bh, n, p)}")
     init = () if initial_state is None else (initial_state,)
+    if shapes_only(xdt, Bh, Ch, dA, *init):
+        y = xdt.new_empty(xdt.shape)
+        return (y, xdt.new_empty((bh, n, p), dtype=torch.float32)) \
+            if final else y
     if not on_cuda(xdt, Bh, Ch, dA, *init):
         y, state = ssd_scan_plain(xdt, Bh, Ch, dA, chunk, heads_per_group,
                                   initial_state)

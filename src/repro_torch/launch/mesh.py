@@ -32,8 +32,13 @@ them) on :data:`COLLECTIVES`, which ``roofline.analysis.
 collective_bytes_from_log`` reads.  The replicas agree through
 deterministic computation, so the federated path broadcasts nothing.
 
-``make_production_mesh`` and ``make_host_mesh`` (the dry run's 256- and
-512-chip meshes) are not here yet: they come with ``launch/dryrun.py``.
+The production meshes of the LM sharding rules (``launch/sharding.py``)
+are :func:`make_production_mesh` — (16, 16) ``("data", "model")``, or
+(2, 16, 16) ``("pod", "data", "model")`` across two pods, whose "pod"
+dim is the Mix2FLD device axis: the cross-pod link is the scarce
+uplink — and :func:`make_host_mesh`, (1, 1) ``("data", "model")`` on one
+card.  The dry run (``launch/dryrun.py``) builds the production meshes
+in a fake world of 512 ranks on the CPU.
 """
 from __future__ import annotations
 
@@ -96,6 +101,20 @@ def make_mesh(shape: tuple, axis_names: tuple, device=None):
                          f"process group has {world_size()}")
     return DeviceMesh(dev.type, torch.arange(n).reshape(tuple(shape)),
                       mesh_dim_names=tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """(16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data",
+    "model")`` with ``multi_pod``: 256 or 512 ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_host_mesh(device=None):
+    """The one-rank mesh of the same dim names, (1, 1) ``("data",
+    "model")``."""
+    return make_mesh((1, 1), ("data", "model"), device)
 
 
 def _largest_divisor(n: int, limit: int) -> int:

@@ -144,9 +144,9 @@ def make_train_step(cfg, grad_accum: int | None = None):
         accum_eff = accum if (accum <= bsz and bsz % accum == 0) else 1
         if accum_eff > 1:
             m = bsz // accum_eff
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.promote_types(p.dtype, _ACCUM_DTYPE[0]),
-                device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.promote_types(p.dtype, _ACCUM_DTYPE[0])),
+                params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=tree_leaves(params)[0].device)
             parts = []
@@ -174,16 +174,20 @@ def make_train_step(cfg, grad_accum: int | None = None):
 # Serving steps
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(cfg, seq_len: int):
+def make_prefill_step(cfg, seq_len: int, place_cache=None):
     """tokens (B, S) or embeds (B, S, D), and enc_out for a
     cross-attention config -> (last-token logits, filled cache of
     ``seq_len``; the SSM cache, and the hybrid's mamba part, do not
-    depend on ``seq_len``)."""
+    depend on ``seq_len``).  ``place_cache``: None, or a function that
+    places the empty cache before it is filled (the sharding rules'
+    ``cache_pspecs``, ``launch/dryrun.py``)."""
 
     def prefill_step(params, batch):
         inp = batch["tokens"] if "tokens" in batch else batch["embeds"]
         cache = kvcache.init_cache(cfg, inp.shape[0], seq_len,
                                    device=inp.device)
+        if place_cache is not None:
+            cache = place_cache(cache)
         logits, _, new_cache = forward(cfg, params, batch, cache=cache)
         return logits[:, -1], new_cache
 

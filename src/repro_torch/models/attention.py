@@ -54,10 +54,10 @@ import torch
 
 from .. import rng
 from ..kernels.flash_attention import flash_attention
-from ..kernels.runtime import records_grad
+from ..kernels.runtime import is_sharded, records_grad
 from .layers import checkpointed, dense_init, dtype_of, rms_norm_headwise
 from .rope import apply_rope, mrope_cos_sin, rope_cos_sin
-from .shardhooks import constrain
+from .shardhooks import constrain, write_slots
 
 NEG_INF = -1e30
 # Above this many query tokens, masked_attention takes the chunked
@@ -352,6 +352,8 @@ def _cache_slots(cfg, q_pos, cache_len):
 def _scatter_cache(cache, new, slots):
     """cache: (B,Smax,H,d); new: (B,T,H,d); slots: (B,T) int.  Writes in
     place and returns ``cache`` (the reference returns a new array)."""
+    if is_sharded(cache):
+        return write_slots(cache, new, slots)
     B, T = slots.shape
     b_idx = torch.arange(B, device=slots.device)[:, None].expand(B, T)
     cache[b_idx, slots.long()] = new.to(cache.dtype)

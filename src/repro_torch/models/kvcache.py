@@ -72,7 +72,7 @@ def cache_shapes(cfg, batch: int, seq_len: int):
     """Full cache tree of (shape, dtype) pairs."""
     _check(cfg)
     L = cfg.num_layers
-    out = {"pos": ((), torch.int64)}
+    out = {"pos": ((), torch.int32)}
     if cfg.family == "ssm":
         out["layers"] = _mamba_shapes(cfg, (L,), batch)
     elif cfg.family == "hybrid":
@@ -98,6 +98,16 @@ def init_cache(cfg, batch: int, seq_len: int, device=None):
             cache[group] = {k: torch.zeros(s, dtype=d, device=device)
                             for k, (s, d) in leaves.items()}
     return cache
+
+
+def cache_specs(cfg, batch: int, seq_len: int):
+    """The cache tree as tensors on the meta device (shapes and dtypes,
+    nothing allocated), ``pos`` a 0-d int32 as in the reference."""
+    return {group: (torch.empty(leaves[0], dtype=leaves[1], device="meta")
+                    if group == "pos" else
+                    {k: torch.empty(s, dtype=d, device="meta")
+                     for k, (s, d) in leaves.items()})
+            for group, leaves in cache_shapes(cfg, batch, seq_len).items()}
 
 
 def kv_positions(cfg, pos: int, Sc: int, batch: int, device=None):

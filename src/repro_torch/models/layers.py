@@ -34,6 +34,8 @@ def scaled_normal(key, shape, scale: float, dtype) -> torch.Tensor:
     one key, drawn in chunks of whole rows on the key's device."""
     shape = tuple(shape)
     out = torch.empty(shape, dtype=dtype, device=key.device)
+    if out.is_meta:   # shapes only (the dry run): nothing to draw
+        return out
     rows, cols = shape[0], math.prod(shape[1:])
     step = max(1, _CHUNK // max(cols, 1))
     for r0 in range(0, rows, step):

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import rng
-from ..kernels.runtime import on_cuda, records_grad
+from ..kernels.runtime import (is_sharded, on_cuda, on_local_rows,
+                               records_grad, shapes_only)
 from ..kernels.ssd_scan import ssd_scan
 from .layers import dense_init, dtype_of
 from .shardhooks import constrain
@@ -63,12 +64,23 @@ def _causal_conv(xBC, w, b):
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, initial_state=None):
     """Chunked SSD. x: (B,S,H,P) fp32, dt: (B,S,H), A: (H,),
-    Bm/Cm: (B,S,G,N). Returns (y (B,S,H,P), final_state (B,H,N,P))."""
+    Bm/Cm: (B,S,G,N). Returns (y (B,S,H,P), final_state (B,H,N,P)).
+    Sharded operands: each rank's batch rows on their own (the heads
+    gathered: B and C are shared by a group's heads)."""
     init = () if initial_state is None else (initial_state,)
-    if on_cuda(x, dt, A, Bm, Cm, *init) and \
-            not records_grad(x, dt, A, Bm, Cm, *init):
+    if is_sharded(x):
+        A = A.full_tensor() if is_sharded(A) else A
+        return on_local_rows(_ssd_rows, x, dt, Bm, Cm, *init, A=A,
+                             chunk=chunk)
+    if not records_grad(x, dt, A, Bm, Cm, *init) and (
+            shapes_only(x, dt, A, Bm, Cm, *init)
+            or on_cuda(x, dt, A, Bm, Cm, *init)):
         return _ssd_chunked_scan(x, dt, A, Bm, Cm, chunk, initial_state)
     return _ssd_chunked_plain(x, dt, A, Bm, Cm, chunk, initial_state)
+
+
+def _ssd_rows(x, dt, Bm, Cm, *init, A, chunk):
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk, *init)
 
 
 def _ssd_chunked_scan(x, dt, A, Bm, Cm, chunk, initial_state=None):
@@ -142,11 +154,13 @@ def _ssd_chunked_plain(x, dt, A, Bm, Cm, chunk, initial_state=None):
     return y, s
 
 
-def mamba2_forward(cfg, p, x, cache=None):
+def mamba2_forward(cfg, p, x, cache=None, dtype=torch.float32):
     """x: (B,S,D). cache: a layer's {"state": (B,H,N,P), "conv":
     (B,k-1,Cd)} or None.  With a cache, S == 1 decodes and S > 1 is the
     cache-building prefill; the cache's tensors are written in place.
-    Returns (out, cache)."""
+    ``dtype``: the mixer's compute dtype between the projections, float32
+    as in the reference (float64 gives the tests an oracle for the CPU
+    path).  Returns (out, cache)."""
     B_, S, D = x.shape
     di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     G, N = cfg.ssm_ngroups, cfg.ssm_state
@@ -155,17 +169,17 @@ def mamba2_forward(cfg, p, x, cache=None):
     zxbcdt = x @ p["in_proj"]
     z = zxbcdt[..., :di]
     xBC = zxbcdt[..., di:di + di + 2 * GN]
-    dt_raw = zxbcdt[..., -H:].float()
+    dt_raw = zxbcdt[..., -H:].to(dtype)
     dt = F.softplus(dt_raw + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    A = -torch.exp(p["A_log"].to(dtype))
 
     if cache is None or S > 1:
         conv_in = xBC
         xBC = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
-        xs = constrain(xBC[..., :di].float().reshape(B_, S, H, P),
+        xs = constrain(xBC[..., :di].to(dtype).reshape(B_, S, H, P),
                        "ssm_inner")
-        Bm = xBC[..., di:di + GN].float().reshape(B_, S, G, N)
-        Cm = xBC[..., di + GN:].float().reshape(B_, S, G, N)
+        Bm = xBC[..., di:di + GN].to(dtype).reshape(B_, S, G, N)
+        Cm = xBC[..., di + GN:].to(dtype).reshape(B_, S, G, N)
         chunk = min(cfg.ssm_chunk, S)
         if S % chunk:  # pad with dt=0 steps: state passes through unchanged
             pad = -(-S // chunk) * chunk - S
@@ -191,15 +205,15 @@ def mamba2_forward(cfg, p, x, cache=None):
         conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + \
             p["conv_b"]
         xBC1 = F.silu(conv_out)[:, None, :]  # (B,1,Cd)
-        xs = xBC1[..., :di].float().reshape(B_, 1, H, P)
-        Bm = xBC1[..., di:di + GN].float().reshape(B_, 1, G, N)
-        Cm = xBC1[..., di + GN:].float().reshape(B_, 1, G, N)
+        xs = xBC1[..., :di].to(dtype).reshape(B_, 1, H, P)
+        Bm = xBC1[..., di:di + GN].to(dtype).reshape(B_, 1, G, N)
+        Cm = xBC1[..., di + GN:].to(dtype).reshape(B_, 1, G, N)
         rep = H // G
         Bh = Bm[:, 0].repeat_interleave(rep, dim=1)  # (B,H,N)
         Ch = Cm[:, 0].repeat_interleave(rep, dim=1)
         a = torch.exp(dt[:, 0] * A)  # (B,H)
         xdt = xs[:, 0] * dt[:, 0, :, None]  # (B,H,P)
-        state = cache["state"].float()
+        state = cache["state"].to(dtype)
         state = a[..., None, None] * state + \
             torch.einsum("bhn,bhp->bhnp", Bh, xdt)
         y = torch.einsum("bhn,bhnp->bhp", Ch, state)[:, None]  # (B,1,H,P)
@@ -210,8 +224,8 @@ def mamba2_forward(cfg, p, x, cache=None):
     y = y.reshape(B_, S, di)
 
     # gated RMSNorm
-    g = y * F.silu(z.float())
+    g = y * F.silu(z.to(dtype))
     ms = torch.mean(torch.square(g), dim=-1, keepdim=True)
-    g = g * torch.rsqrt(ms + cfg.norm_eps) * p["norm"].float()
+    g = g * torch.rsqrt(ms + cfg.norm_eps) * p["norm"].to(dtype)
     out = g.to(x.dtype) @ p["out_proj"]
     return out, cache

@@ -62,6 +62,10 @@ def _hash(key, lo):
     """threefry of counter ``(0, lo)`` under each key of the batch:
     ``key`` (..., 2), ``lo`` (*s) -> two words of shape (..., *s)."""
     nb = lo.dim()
+    if key.is_meta:   # shapes only (the dry run's parameter tree)
+        w = torch.empty(key.shape[:-1] + lo.shape, dtype=torch.int64,
+                        device="meta")
+        return w, w
     key = key.to(torch.int64)
     k1 = key[..., 0].reshape(key.shape[:-1] + (1,) * nb)
     k2 = key[..., 1].reshape(key.shape[:-1] + (1,) * nb)

@@ -17,7 +17,9 @@ from repro_torch.data import (parse_task, synthetic_audio, synthetic_images,
                               synthetic_rgb_images, synthetic_tokens)
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import serve, serve_classifier
-from repro_torch.launch.mesh import make_device_mesh, make_grid_mesh, make_mesh
+from repro_torch.launch.mesh import (make_device_mesh, make_grid_mesh,
+                                     make_host_mesh, make_mesh,
+                                     make_production_mesh)
 from repro_torch.launch.service import FederatedService, InferenceEndpoint
 from repro_torch.launch.train import main as train_main
 from repro_torch.models import CNN
@@ -93,6 +95,7 @@ def test_the_walk_sees_the_package():
             "src/repro_torch/configs/qwen2_moe_a2_7b.py",
             "src/repro_torch/launch/mesh.py",
             "src/repro_torch/launch/sharding.py",
+            "src/repro_torch/launch/dryrun.py",
             "src/repro_torch/roofline/analysis.py",
             "tools/round_ab.py"} <= names
     # the import walk resolves relative imports: the pipeline's own
@@ -156,7 +159,8 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FederatedTrainer(CNN(), FederatedConfig(shard_devices=True))
     for make in (lambda: make_device_mesh(4), lambda: make_grid_mesh(2, 4),
-                 lambda: make_mesh((1,), ("pod",))):
+                 lambda: make_mesh((1,), ("pod",)), make_host_mesh,
+                 make_production_mesh):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")

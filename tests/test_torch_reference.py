@@ -3,8 +3,8 @@
 ``load_reference()`` imports the JAX package's round loop, models and
 their registry, data, sampling, codecs and privacy, LM stack (dense,
 MoE and Mamba2), serve and train entry points, optimizers, kernels,
-round program, checkpoint, service, sweep engine, roofline, meshes and
-sharding rules for the
+round program, checkpoint, service, sweep engine, roofline, meshes,
+sharding rules and dry run for the
 ``tests/test_torch_*.py`` files.  Under the installed jax ``repro.models.transformer`` cannot be
 imported: its guard runs
 ``_obar_p not in _batching.primitive_batchers`` and jax 0.9's
@@ -21,6 +21,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import importlib
+import os
 import sys
 import types
 
@@ -79,6 +80,9 @@ _MODULES = {
     "roofline": "repro.roofline.analysis",
     "mesh": "repro.launch.mesh",
     "sharding": "repro.launch.sharding",
+    # sets XLA_FLAGS to 512 host devices when imported: the loader puts
+    # the variable back before any jax backend starts
+    "dryrun": "repro.launch.dryrun",
 }
 
 
@@ -88,6 +92,7 @@ def _is_reference(name: str) -> bool:
 
 def _load_reference() -> types.SimpleNamespace:
     before = set(sys.modules)
+    xla_flags = os.environ.get("XLA_FLAGS")
     proxy = type(batching.primitive_batchers)
     proxy.__contains__ = (
         lambda self, prim: prim in batching.fancy_primitive_batchers)
@@ -98,6 +103,10 @@ def _load_reference() -> types.SimpleNamespace:
         mods["configs"]._ensure_loaded()
     finally:
         del proxy.__contains__
+        if xla_flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = xla_flags
     for name in sorted(set(sys.modules) - before, reverse=True):
         if not _is_reference(name):
             continue
