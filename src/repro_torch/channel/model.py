@@ -98,6 +98,32 @@ def slowest_ok_time(t, ok, deadline_s: float):
                        deadline_s)
 
 
+def simulate_link(key, cfg: ChannelConfig, payload_bits: float, up: bool,
+                  n_links: int):
+    """``n_links`` independent links of one direction for one global
+    update: (latency_slots (n,), success (n,) bool), the draw of
+    :func:`link_outcomes` under ``cfg``'s link budget."""
+    p, bits = cfg.link_budget(up)
+    return link_outcomes(key, p, slots_needed(payload_bits, bits), n_links,
+                         cfg.t_max_slots)
+
+
+def round_trip(key, cfg: ChannelConfig, up_bits: float, dn_bits: float):
+    """One global update on the host's terms: per-device uplink (FDMA
+    unicast) and downlink (multicast) outcomes under ``cfg``, and the
+    round's latency as a Python float, tau * (slowest successful T_up +
+    slowest successful T_dn), read back from the device.  The same
+    draws as :func:`round_trip_traced` from the same key."""
+    k = rng.split(key, 2)
+    t_up, ok_up = simulate_link(k[0], cfg, up_bits, True, cfg.num_devices)
+    t_dn, ok_dn = simulate_link(k[1], cfg, dn_bits, False, cfg.num_devices)
+    latency_s = cfg.tau_s * (
+        float(slowest_ok_slots(t_up, ok_up, cfg.t_max_slots)) +
+        float(slowest_ok_slots(t_dn, ok_dn, cfg.t_max_slots)))
+    return {"up_ok": ok_up, "dn_ok": ok_dn, "t_up": t_up, "t_dn": t_dn,
+            "latency_s": latency_s}
+
+
 def round_trip_traced(key, p_up, up_slots, p_dn, dn_slots, n_links: int,
                       t_max_slots: int, tau_s: float):
     """One round's uplink (FDMA unicast) + downlink (multicast) draw.

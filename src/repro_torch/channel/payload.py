@@ -272,6 +272,17 @@ def round_payload_bits(protocol: str, *, n_mod: int, n_labels: int,
                         mod_bits)
 
 
+def payload_bits(protocol: str, *, n_mod: int, n_labels: int,
+                 sample_bits: int = 0, n_seed: int = 0,
+                 first_round: bool = False,
+                 codec="identity") -> tuple[float, float]:
+    """(uplink_bits, downlink_bits) per device for one round."""
+    p = round_payload_bits(protocol, n_mod=n_mod, n_labels=n_labels,
+                           sample_bits=sample_bits, n_seed=n_seed,
+                           codec=codec)
+    return (p.up_first if first_round else p.up_steady), p.dn
+
+
 def round_slot_plan(protocol: str, cfg, *, n_mod: int, n_labels: int,
                     sample_bits: int = 0, n_seed: int = 0,
                     codec="identity") -> dict:

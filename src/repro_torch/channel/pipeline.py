@@ -5,10 +5,10 @@
   stage (``channel/payload.py``): what the server decodes of each
   device's payload; :func:`grid_uplink_stage` the same for a sweep
   group's stacked points, each with its own codec parameters;
-* ``round_trip_traced`` (``channel/model.py``, the channel draw itself,
-  batched over a sweep group's points: (G, 2) keys and (G,) link
-  budgets), passed on here: code outside the channel package reaches
-  the channel model only through this module;
+* :data:`channel_stage`, ``round_trip_traced`` of ``channel/model.py``
+  (the channel draw itself, batched over a sweep group's points: (G, 2)
+  keys and (G,) link budgets), passed on here: code outside the channel
+  package reaches the channel model only through this module;
 * :class:`LinkPlan` — the host-side link plan (per-slot success
   probabilities and decode-slot counts) and its per-round draw, split
   into :meth:`LinkPlan.dispatch` (device work only, no host copy or
@@ -29,6 +29,9 @@ from .model import compute_outcomes, round_trip_traced, slowest_ok_time
 from .payload import (CodecSpec, decode_params, decode_table, encode_params,
                       encode_table, parse_codec, round_slot_plan)
 
+
+#: the channel draw itself, under the name the protocol layer calls it
+channel_stage = round_trip_traced
 
 _SIDE_STREAMS: dict = {}   # device -> the stream the draws run on
 

@@ -2,7 +2,8 @@
 
 The server transfers the knowledge in the global average output vectors
 G_out into the global model by running K_s SGD-with-KD iterations over
-the collected (for Mix2FLD, inversely mixed-up) seed samples.  Plain
+the collected (for Mix2FLD, inversely mixed-up) seed samples;
+:func:`output_to_model` runs them for one server model.  Plain
 PyTorch losses, as the reference computes eq. 5 in plain jnp.  On the
 GPU the steps are replays of a captured CUDA graph of one step
 (``core/graphs.py``); on the CPU the same step runs eagerly.
@@ -22,7 +23,32 @@ import torch
 
 from .. import rng
 from .graphs import CapturedSteps, unflatten
-from .losses import ce_terms, kd_terms
+from .losses import (ce_terms, cross_entropy, kd_regularizer,  # noqa: F401
+                     kd_terms)
+
+
+def output_to_model(model_apply, params, seeds_x, seeds_y, gout,
+                    iters: int, batch: int, eta, beta, key):
+    """K_s iterations of eq. (5) for one server model: ``params`` a
+    two-level dict of unstacked leaves (a round-loop model's), seeds_y
+    int labels (FLD, Mix2FLD hard labels) or soft label vectors (MixFLD);
+    the KD target row is the (arg-max for soft) ground-truth label.
+    Step i draws its batch from ``split(key, iters)[i]``, as the
+    reference's scan.  ``key`` is required.  Returns (params, losses
+    (iters,)).  A G = 1 group of :func:`output_to_model_steps`, on the
+    device of ``seeds_x``."""
+    dev = seeds_x.device
+    new, losses = output_to_model_steps(
+        model_apply, {k: {n: t[None] for n, t in v.items()}
+                      for k, v in params.items()},
+        seeds_x[None], seeds_y[None],
+        gout[None], rng.split(key, iters)[None],
+        torch.tensor([iters], dtype=torch.int64, device=dev),
+        seeds_x.shape[0], batch,
+        torch.tensor([eta], dtype=torch.float32, device=dev),
+        torch.tensor([beta], dtype=torch.float32, device=dev))
+    return {k: {n: t[0] for n, t in v.items()} for k, v in new.items()}, \
+        losses[0]
 
 
 def output_to_model_steps(model_apply, params, seeds_x, seeds_y, gout,

@@ -5,7 +5,8 @@
   L2 distance to any raw constituent.  Higher = more private.
 * **Differential privacy** (the ``dp_gaussian`` link codec):
   :func:`gaussian_mechanism` clips a payload to a fixed L2 sensitivity
-  and adds Gaussian noise before it crosses the uplink, and
+  and adds Gaussian noise before it crosses the uplink
+  (:func:`gaussian_mechanism_tree`: a tree under one global clip), and
   :class:`GaussianAccountant` tracks the (epsilon, delta) spend: one
   release with noise multiplier sigma is (eps0, delta)-DP for
   ``eps0 = sqrt(2 ln(1.25/delta)) / sigma``, composed linearly.
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..checkpoint import _flatten_with_paths, _unflatten
 
 
 def sample_privacy(uploaded, raws):
@@ -64,6 +66,22 @@ def gaussian_mechanism(x, key, noise, clip):
     dims = tuple(range(len(batch), x.dim()))
     sq = (x * x).sum(dims, keepdim=True) if dims else x * x
     return x * clip_scale(sq, clip) + noise
+
+
+def gaussian_mechanism_tree(tree, key, sigma, clip):
+    """:func:`gaussian_mechanism` for a tree payload (a model update, a
+    dict tree of float32 tensors): the clip bounds the *global* L2 norm
+    across the leaves, and leaf i (in the reference's order: dict keys
+    sorted, depth first, as a checkpoint flattens a tree) gets
+    N(0, (sigma*clip)^2) noise in its own shape from ``fold_in(key, i)``.
+    Returns a tree of the same structure."""
+    _, leaves = _flatten_with_paths(tree)
+    nrm = torch.sqrt(sum((x * x).sum() for x in leaves))
+    scale = torch.clamp(clip / nrm.clamp_min(1e-12), max=1.0)
+    return _unflatten(tree, [
+        x * scale + sigma * clip
+        * rng.normal(rng.fold_in(key, i), tuple(x.shape))
+        for i, x in enumerate(leaves)])
 
 
 def gaussian_epsilon(sigma: float, delta: float, rounds: int = 1) -> float:

@@ -52,9 +52,10 @@ import torch
 from .. import rng
 from ..channel import ChannelConfig
 from ..channel.payload import CodecSpec, LinkConfig, parse_codec
-from ..channel.pipeline import (LinkPlan, downlink_gout, downlink_params,
+from ..channel.pipeline import (LinkPlan, channel_stage,  # noqa: F401
+                                downlink_gout, downlink_params,
                                 grid_uplink_stage, make_uplink_stage,
-                                round_trip_traced)
+                                round_trip_traced, uplink_stage)
 from ..data.pipeline import TaskSpec, parse_task
 from ..device import deterministic_cudnn, resolve_device
 from ..kernels.distill_loss import distill_step
@@ -63,12 +64,17 @@ from ..launch.mesh import (all_gather_rows, all_reduce_sum, make_device_mesh,
 from ..models.registry import ModelSpec, build_model, parse_model
 from ..registry import (FLD_FAMILY, MODELS, PROTOCOLS,  # noqa: F401
                         canonical_model, canonical_protocol)
-from .conversion import OutputToModelSteps
+from ..launch.sharding import federated_pspecs  # noqa: F401
+from .conversion import (OutputToModelSteps, output_to_model,  # noqa: F401
+                         output_to_model_steps)
+from .losses import fd_loss  # noqa: F401
+from .outputs import label_averaged_outputs  # noqa: F401
 from .graphs import CapturedSteps
 from .privacy import GaussianAccountant
 from .program import LoopRoundProgram, ProgramOptions
 from .sampling import ChurnConfig, SamplerConfig
-from .seed_prep import collect_seeds, summarize_seeds
+from .seed_prep import (collect_seeds, prepare_seeds,  # noqa: F401
+                        summarize_seeds)
 from .state import RoundState
 
 

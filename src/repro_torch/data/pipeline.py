@@ -3,12 +3,14 @@ shape, class count, per-sample uplink payload width) and materializes
 it.  The tasks are synthetic stand-ins with the real dataset's geometry:
 28x28x1 digits @ 8 bit, 32x32x3 CIFAR-shaped images @ 8 bit and a
 speech-commands-shaped 32x40 log-mel gram @ 16 bit.  Name resolution
-lives in ``registry.canonical_task``."""
+lives in ``registry.canonical_task``.  :func:`device_batches` and
+:func:`global_batches` draw batch indices as the reference does."""
 from __future__ import annotations
 
 import dataclasses
 import math
 
+from .. import rng
 from ..registry import TASKS, canonical_task
 from .synthetic import synthetic_audio, synthetic_images, synthetic_rgb_images
 
@@ -57,3 +59,19 @@ def parse_task(name: str) -> TaskSpec:
     """Resolve a task name (canonical or alias) to its :class:`TaskSpec`;
     unknown names raise ``canonical_task``'s shared ValueError."""
     return _TASK_SPECS[canonical_task(name)]
+
+
+def device_batches(key, n_local: int, iters: int, batch_size: int):
+    """(iters, batch_size) random sample indices into a device's dataset,
+    on the key's device."""
+    return rng.randint(key, (iters, batch_size), 0, n_local)
+
+
+def global_batches(key, x, y, batch_size: int, steps: int):
+    """Host-side iterator of random batches of a flat dataset (tensors):
+    step s draws its indices from ``fold_in(key, s)``."""
+    n = x.shape[0]
+    for s in range(steps):
+        idx = rng.randint(rng.fold_in(key, s), (batch_size,), 0, n)
+        idx = idx.to(x.device)
+        yield x[idx], y[idx]

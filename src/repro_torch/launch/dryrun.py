@@ -58,8 +58,10 @@ from ..configs import INPUT_SHAPES, get_config, input_specs, list_archs
 from ..models import kvcache
 from ..models.shardhooks import set_activation_sharding
 from ..models.transformer import init_params, tree_map
-from ..roofline.analysis import (analytic_flops, collective_bytes_from_log,
-                                 dominant_term, roofline_terms)
+from ..roofline.analysis import (analytic_flops,  # noqa: F401
+                                 collective_bytes_from_hlo,
+                                 collective_bytes_from_log, dominant_term,
+                                 roofline_terms)
 from .. import rng
 from . import sharding as shp
 from .mesh import (HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16, make_host_mesh,

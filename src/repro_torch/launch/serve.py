@@ -168,6 +168,8 @@ def serve_classifier(model_name: str, task_name: str, batch: int,
 
 
 def main(argv=None):
+    """The command line; returns the generated tokens (or the
+    classifier's predictions)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--classifier", default=None,
@@ -185,11 +187,10 @@ def main(argv=None):
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
     if args.classifier is not None:
-        serve_classifier(args.classifier, args.task, args.batch,
-                         device=args.device)
-        return
-    serve(args.arch, args.batch, args.prompt_len, args.gen,
-          smoke=not args.full, device=args.device)
+        return serve_classifier(args.classifier, args.task, args.batch,
+                                device=args.device)
+    return serve(args.arch, args.batch, args.prompt_len, args.gen,
+                 smoke=not args.full, device=args.device)
 
 
 if __name__ == "__main__":

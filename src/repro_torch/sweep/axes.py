@@ -35,7 +35,7 @@ from ..core.seed_prep import seed_fields_key
 from ..data.partition import PARTITION_SCHEMES, PartitionSpec
 from ..data.pipeline import parse_task
 from ..models.registry import parse_model
-from ..registry import canonical_protocol
+from ..registry import PROTOCOLS, canonical_protocol  # noqa: F401
 
 #: Per-point config values of a group's step, or absorbed on the host
 #: (sample_ratio / sample_seed: cohorts are drawn per point on the host

@@ -52,8 +52,9 @@ from .. import rng
 from ..channel.payload import round_slot_plan
 from ..core.privacy import GaussianAccountant, gaussian_epsilon
 from ..core.program import GridRoundProgram, ProgramOptions
-from ..core.protocols import (FLD_FAMILY, FederatedTrainer, GridShards,
-                              make_grid_round_step)
+from ..core.protocols import (FLD_FAMILY, FederatedTrainer,  # noqa: F401
+                              GridShards, gout_update_psum,
+                              make_grid_round_step, weighted_avg_psum)
 from ..core.seed_prep import SeedPrepMemo, prepare_seeds
 from ..core.state import RoundState
 from ..data.pipeline import parse_task

@@ -1,9 +1,10 @@
 """The port stands alone: no module of src/repro_torch, and neither
-chip_smoke.py nor the scripts under tools/, imports jax, anything of
-the reference package or the reference's benchmark harness; only the channel package reaches the raw channel
-model (``repro_torch.channel.model``), everything else goes through the
-link pipeline (the reference's ruff TID251 ban, as a test); and its
-entry points run on the GPU unless asked for the CPU."""
+chip_smoke.py, the scripts under tools/ nor the port's examples
+(examples/torch_*.py), imports jax, anything of the reference package
+or the reference's benchmark harness; only the channel package reaches
+the raw channel model (``repro_torch.channel.model``), everything else
+goes through the link pipeline (the reference's ruff TID251 ban, as a
+test); and its entry points run on the GPU unless asked for the CPU."""
 import ast
 from pathlib import Path
 
@@ -28,7 +29,8 @@ from repro_torch.models.transformer import init_params
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + \
+    sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imports(path, resolve=False):
@@ -97,7 +99,11 @@ def test_the_walk_sees_the_package():
             "src/repro_torch/launch/sharding.py",
             "src/repro_torch/launch/dryrun.py",
             "src/repro_torch/roofline/analysis.py",
-            "tools/round_ab.py"} <= names
+            "tools/round_ab.py",
+            "examples/torch_quickstart.py",
+            "examples/torch_paper_fig2.py",
+            "examples/torch_serve_batched.py",
+            "examples/torch_train_lm_mix2fld.py"} <= names
     # the import walk resolves relative imports: the pipeline's own
     # import of the channel model is seen
     assert "repro_torch.channel.model.round_trip_traced" in set(_imports(

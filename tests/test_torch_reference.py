@@ -4,17 +4,18 @@
 their registry, data, sampling, codecs and privacy, LM stack (dense,
 MoE and Mamba2), serve and train entry points, optimizers, kernels,
 round program, checkpoint, service, sweep engine, roofline, meshes,
-sharding rules and dry run for the
+sharding rules and dry run, and the Fig. 2 harness
+(``benchmarks/bench_protocols.py``), for the
 ``tests/test_torch_*.py`` files.  Under the installed jax ``repro.models.transformer`` cannot be
 imported: its guard runs
 ``_obar_p not in _batching.primitive_batchers`` and jax 0.9's
 ``PrimitiveBatchersProxy`` has no ``__contains__`` (ROADMAP C1).  The
 loader gives the proxy a ``__contains__`` (membership in
 ``fancy_primitive_batchers``) for the duration of the import and deletes
-it again.  It then drops the ``repro`` modules it imported from
-``sys.modules`` (keeping its own references), so that the reference's
-own tests, which import ``repro`` themselves, see the same import
-behaviour with or without these tests in their process.
+it again.  It then drops the ``repro`` and ``benchmarks`` modules it
+imported from ``sys.modules`` (keeping its own references), so that the
+reference's own tests, which import ``repro`` themselves, see the same
+import behaviour with or without these tests in their process.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ _MODULES = {
     "outputs": "repro.core.outputs",
     "conversion": "repro.core.conversion",
     "data": "repro.data",
+    "data_pipeline": "repro.data.pipeline",
     "synthetic": "repro.data.synthetic",
     "partition": "repro.data.partition",
     "channel": "repro.channel",
@@ -83,15 +85,20 @@ _MODULES = {
     # sets XLA_FLAGS to 512 host devices when imported: the loader puts
     # the variable back before any jax backend starts
     "dryrun": "repro.launch.dryrun",
+    # the Fig. 2 harness the port's examples/torch_paper_fig2.py copies
+    "bench_protocols": "benchmarks.bench_protocols",
 }
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _is_reference(name: str) -> bool:
-    return name == "repro" or name.startswith("repro.")
+    return name.split(".")[0] in ("repro", "benchmarks")
 
 
 def _load_reference() -> types.SimpleNamespace:
     before = set(sys.modules)
+    if ROOT not in sys.path:   # ``benchmarks`` is a package at the root
+        sys.path.append(ROOT)
     xla_flags = os.environ.get("XLA_FLAGS")
     proxy = type(batching.primitive_batchers)
     proxy.__contains__ = (
