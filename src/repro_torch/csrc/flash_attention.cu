@@ -14,7 +14,8 @@
 // owns a query tile and loops over the key tiles itself, keeping the state
 // in registers.  Any S works: keys and queries past S are masked and never
 // stored.  Key tiles wholly above the diagonal, or wholly outside the
-// window, are skipped, and the q tiles with the most key tiles run first.
+// window, are skipped, and the q tiles with the most key tiles run first
+// (on the tensor cores, within each group of heads).
 //
 // Two routes, chosen by dtype in flash_attention_launch:
 //
@@ -27,11 +28,19 @@
 //   through the softmax on the CUDA cores (max, exp, sum, rounding:
 //   hundreds of instructions a thread per tile, about as long as the
 //   CTA's ~1000 tensor-core cycles of products for it).  So:
-//   - one CTA takes 128 query rows: one producer warp and two consumer
-//     warpgroups of 64 rows.  The producer loads Q once and keeps a ring
-//     of 128-key K/V stages (up to four, as shared memory allows) in
-//     flight with TMA (cp.async.bulk.tensor, 128- or 64-byte swizzle,
-//     rows past S zero-filled), signalled by full/empty mbarriers;
+//   - a query tile is 128 rows: one producer warpgroup and two
+//     consumer warpgroups of 64 rows (384 threads).  The producer loads Q
+//     and keeps a ring of 128-key K/V stages (up to four, as shared
+//     memory allows) in flight with TMA (cp.async.bulk.tensor, 128- or
+//     64-byte swizzle, rows past S zero-filled), signalled by full and
+//     empty mbarriers, K's apart from V's: K_{i+1} is loaded before V_i,
+//     and a K stage is refilled as soon as its Q K^T is done, not after
+//     the P V of its tile;
+//   - the register file is split with setmaxnreg: the producer gives its
+//     warpgroup's registers up (24 a thread) and the consumers take them
+//     (240 a thread; 168 each without the split).  A consumer at dv 128
+//     holds the accumulator (64 floats), a score tile (64) and P (32
+//     bf16 pairs) at once: ~160 registers before m, l and the addresses;
 //   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
 //     O += P V is wgmma with P in registers (rounded to bf16, the A
 //     fragments of the accumulator's own layout) and V read MN-major;
@@ -40,12 +49,12 @@
 //     the online softmax runs on the accumulator fragments (a row lives
 //     in one quad: two shuffles; exp2 with scale * log2(e) folded in; l
 //     sums the unrounded exponentials);
-//   - at dv <= 64 each warpgroup issues S_i with P_{i-1} V_{i-1} and runs
-//     the softmax of tile i while that product is on the tensor cores,
-//     and the two warpgroups take turns to issue (named barriers), so
-//     one's softmax overlaps the other's products.  At dv = 128 the
-//     accumulator, S and P together exceed the 168 registers a thread
-//     has, so the products are issued one after the other;
+//   - at every (d, dv) each warpgroup issues S_i with P_{i-1} V_{i-1}
+//     and runs the softmax of tile i while that product is on the tensor
+//     cores, and the two warpgroups take turns to issue (named barriers),
+//     so one's softmax overlaps the other's products.  The accumulator of
+//     tile i is acc * alpha_i + P_i V_i either way: the overlap changes
+//     when a product is issued, not what is summed;
 //   - the epilogue scales by 1 / max(l, 1e-30) (one division a row),
 //     rounds to bf16 into shared memory in TMA's swizzled layout and
 //     writes each warpgroup's rows with one bulk tensor store (rows past
@@ -63,16 +72,28 @@
 //     window (t_first): at h2o-danube3's window of 4096 and S 8192 a
 //     128-row query tile reads 33 key tiles, 1.03x the keys its rows
 //     attend, not the 64 of the causal triangle.
+//   - for a causal call one CTA an SM walks pairs of query tiles of a
+//     head (the heaviest and the lightest left: every pair walks as many
+//     key tiles), Q double-buffered: a query tile's Q and first K/V
+//     tiles load while the one before runs.  A window's call, d 192 (a
+//     second Q buffer leaves one K/V stage) and a call whose pairs would
+//     balance worse than single tiles run a CTA a query tile, with a
+//     deeper K/V ring;
+//   - the CTAs run in groups of heads whose K and V fit in a third of
+//     L2 (GROUP_BYTES), the heaviest query tiles of a group first: in
+//     plain heaviest-first order, 132 CTAs at once read 132 heads' K
+//     and V (67 MB at qwen3-14b's (160, 1024, 128)), more than L2 holds,
+//     so each query tile read its keys from device memory again.
 //   - MLA (deepseek-v2) attends with q.k 192 wide (nope 128 + rope 64)
 //     and values 128 wide.  Its prefill calls this at (BH 512, S 1024,
 //     d 192, dv 128): 671 MB (0.200 ms at 3.35 TB/s) and 172 GFLOP on
 //     the causal half (0.174 ms at 989 TFLOP/s), so bytes bound it.
 //     (192, 128) is an instantiation of its own: Q and K in three
-//     64-column chunks (128-byte swizzle), 12 k-steps a Q K^T tile, the
-//     serial dv-128 schedule.  A separate O tile would leave room for one
-//     80 KB K/V stage, no prefetch; O is staged in Q's bytes instead
-//     (Layout), which leaves two.  Every head reads the one rope key of a
-//     position, copied into each head's K by the caller.
+//     64-column chunks (128-byte swizzle), 12 k-steps a Q K^T tile.  A
+//     separate O tile would leave room for one 80 KB K/V stage, no
+//     prefetch; O is staged in Q's bytes instead (Layout), which leaves
+//     two.  Every head reads the one rope key of a position, copied into
+//     each head's K by the caller.
 // * float32: the CUDA-core kernel (first namespace below, unchanged from
 //   the first port): 64 x 64 tiles in f32 shared memory, 256 threads, FMA
 //   on the CUDA cores.  It stays for float32 because a TF32 tensor-core
@@ -95,6 +116,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
@@ -376,11 +399,23 @@ namespace tc {
 
 using namespace hopper;
 
-constexpr int BQ = 128;                  // query rows per CTA, 64 per warpgroup
-constexpr int BK = 128;                  // keys per K/V tile
-constexpr int CONSUMERS = 256;           // two consumer warpgroups
-constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
-constexpr int MAX_STAGES = 4;            // K/V ring depth, as shared memory allows
+constexpr int BQ = 128;                   // rows of a query tile, 64 a warpgroup
+constexpr int BK = 128;                   // keys per K/V tile
+constexpr int CONSUMERS = 256;            // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // and one producer warpgroup
+constexpr int MAX_STAGES = 4;             // K/V ring depth, as shared memory allows
+// setmaxnreg's split of the CTA's registers: the 168 a thread that
+// __launch_bounds__(THREADS, 1) gives at launch (65,536 / 384, rounded
+// down to a multiple of 8); an increase takes only what a decrease gave
+constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * CONSUMERS <=
+                  ENTRY_REGS * THREADS,
+              "the register split exceeds the CTA's registers");
+// A third of the card's 50 MB L2: the K and V bytes of a group of heads
+// whose query tiles run together (flash_fwd_tc's launch order)
+constexpr int64_t GROUP_BYTES = 16 << 20;
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -391,12 +426,19 @@ __host__ __device__ constexpr int chunk_cols(int width) {
   return width >= 64 ? 64 : width;
 }
 
-// Shared memory: Q, the O staging tile, the K/V ring, the mbarriers.
-// Where a separate O tile would leave fewer than two K/V stages (d 192,
-// dv 128: Q 48 KB + O 32 KB + one 80 KB stage), O is staged in Q's
-// bytes instead: a warpgroup writes O only after its last product has
-// read Q, and with 64-column chunks and dv <= d its O rows lie inside
-// its own Q rows, which the other warpgroup never reads.
+__host__ __device__ constexpr int cap_stages(int n) {
+  return n < MAX_STAGES ? n : MAX_STAGES;
+}
+
+// Shared memory: the mbarriers (the first 1024 bytes), Q (a buffer for
+// each query tile of the CTA), the O staging tile and the K/V ring, a
+// stage a K tile and then its V tile.  Where each warpgroup's O rows lie
+// inside its own Q rows (64-column chunks, dv <= d), O is staged in its
+// query tile's Q bytes: a warpgroup writes O only after its last product
+// has read Q, and the other warpgroup never reads those rows.  Q may be
+// double-buffered (PAIRS) where a second buffer still leaves two K/V
+// stages: the ring then has STAGES2 stages, else STAGES1.  At d 192, dv
+// 128 it may not (2 x 48 KB of Q and one 80 KB stage).
 template <int D, int DV>
 struct Layout {
   static constexpr int CQ = chunk_cols(D), CV = chunk_cols(DV);
@@ -404,23 +446,33 @@ struct Layout {
   static constexpr int O_BYTES = BQ * DV * 2;
   static constexpr int K_BYTES = BK * D * 2;
   static constexpr int V_BYTES = BK * DV * 2;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr bool O_IN_Q = CQ == 64 && CV == 64 && DV <= D;
+  static constexpr int Q_OFF = 1024;  // after the barriers
   // 232448 bytes: the most dynamic shared memory a CTA may have on
-  // sm_90; 1024 of alignment slack and room for the barriers
-  static constexpr int ROOM = 232448 - Q_BYTES - 1024 - 8 * 64;
-  static constexpr bool O_IN_Q = (ROOM - O_BYTES) / (K_BYTES + V_BYTES) < 2;
-  static constexpr int FIT =
-      (ROOM - (O_IN_Q ? 0 : O_BYTES)) / (K_BYTES + V_BYTES);
-  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
-  static_assert(STAGES >= 2, "the K/V ring needs two stages to prefetch");
-  static_assert(!O_IN_Q || (CQ == 64 && CV == 64 && DV <= D),
-                "O in Q's bytes needs each warpgroup's O rows in its Q rows");
-  // every offset a multiple of 1024
-  static constexpr int O_OFF = O_IN_Q ? 0 : Q_BYTES;
-  static constexpr int K_OFF = O_IN_Q ? Q_BYTES : O_OFF + O_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * V_BYTES;
-  // barriers: q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
-  static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+  // sm_90; 1024 of alignment slack, the barriers, one Q buffer and,
+  // unless it is staged in Q, O
+  static constexpr int ROOM =
+      232448 - 1024 - Q_OFF - Q_BYTES - (O_IN_Q ? 0 : O_BYTES);
+  static constexpr int STAGES1 = cap_stages(ROOM / STAGE_BYTES);
+  static constexpr int STAGES2 = cap_stages((ROOM - Q_BYTES) / STAGE_BYTES);
+  static constexpr bool PAIRS = STAGES2 >= 2;
+  static_assert(STAGES1 >= 2, "the K/V ring needs two stages to prefetch");
+  // with q_bufs Q buffers: the ring's depth and offset, the O staging
+  // tile of query tile n, and the bytes a CTA asks for (every offset a
+  // multiple of 1024)
+  __host__ __device__ static constexpr int stages(int q_bufs) {
+    return q_bufs == 2 ? STAGES2 : STAGES1;
+  }
+  __host__ __device__ static constexpr int ring_off(int q_bufs) {
+    return Q_OFF + q_bufs * Q_BYTES + (O_IN_Q ? 0 : O_BYTES);
+  }
+  __host__ __device__ static constexpr int o_off(int q_bufs, int n) {
+    return Q_OFF + (O_IN_Q ? n : q_bufs) * Q_BYTES;
+  }
+  __host__ __device__ static constexpr int smem(int q_bufs) {
+    return ring_off(q_bufs) + stages(q_bufs) * STAGE_BYTES + 1024;
+  }
 };
 
 // K-major operand [rows][width] in chunks of `cols`: the 16 columns of
@@ -676,209 +728,348 @@ __device__ __forceinline__ void pack_rescale(const float (&sc)[BK / 2],
   }
 }
 
-template <int D, int DV>
+// The mbarriers, at the start of shared memory.  A full barrier
+// completes when TMA has written its stage; an empty one when the eight
+// consumer warps have read theirs (each warp's lane 0 arrives after its
+// products' wait), or, for a Q buffer, when both consumer warpgroups'
+// output stores have read the query tile's O (staged in Q's bytes or
+// not) and its last Q K^T is done.
+struct Barriers {
+  uint64_t q_full[2], q_empty[2];
+  uint64_t k_full[MAX_STAGES], v_full[MAX_STAGES];
+  uint64_t k_empty[MAX_STAGES], v_empty[MAX_STAGES];
+};
+static_assert(sizeof(Barriers) <= 1024, "the barriers outgrow their bytes");
+
+// A position in a K/V ring of STAGES stages: its stage and the parity of
+// that stage's phase.  It runs on from one query tile to the next.
+template <int STAGES>
+struct Ring {
+  int st = 0;
+  uint32_t ph = 0;
+  __device__ __forceinline__ void next() {
+    if (++st == STAGES) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// The query tiles of slot `id`, heaviest first.  Paired: two of one
+// head, the heaviest and the lightest left (n_qt - 1 - p and p), or the
+// middle one alone, so that every slot of a causal call walks n_qt + 1
+// key tiles; else one (n_qt - 1 - p).  The slots run through the heads
+// in groups of `group`, and in each group through p from the heaviest
+// (every head of the group at one p before the next): a group's K and V
+// stay in L2 while its query tiles read them again.  In plain
+// heaviest-first order, 132 CTAs at once read 132 heads' K and V (67 MB
+// at qwen3-14b's (160, 1024, 128)), more than L2 holds.  A CTA walks the
+// slots blockIdx.x, + gridDim.x, ...: one a CTA unpaired; paired, one
+// CTA an SM walks its share of the slots, all of one cost.
+template <bool PAIRED>
+struct Work {
+  int bh, p, n_qt;
+  __device__ __forceinline__ static int slots(int s, int n_bh) {
+    const int n_qt = (s + BQ - 1) / BQ;
+    return n_bh * (PAIRED ? (n_qt + 1) / 2 : n_qt);
+  }
+  __device__ __forceinline__ Work(int id, int s, int n_bh, int group) {
+    n_qt = (s + BQ - 1) / BQ;
+    const int per_head = PAIRED ? (n_qt + 1) / 2 : n_qt;
+    const int g0 = id / (group * per_head) * group;
+    const int in_group = min(group, n_bh - g0);
+    const int i = id - g0 * per_head;
+    bh = g0 + i % in_group;
+    p = PAIRED ? per_head - 1 - i / in_group : i / in_group;
+  }
+  __device__ __forceinline__ int tiles() const {
+    return PAIRED && p != n_qt - 1 - p ? 2 : 1;
+  }
+  __device__ __forceinline__ int q0(int n) const {
+    return (n == 0 ? n_qt - 1 - p : p) * BQ;
+  }
+};
+// The first key tile a query tile at q0 reads (t_first: a window skips
+// the tiles wholly before its first row's window) and how many it reads.
+__device__ __forceinline__ int first_tile(int q0, int window) {
+  return (window > 0 ? max(0, q0 - window + 1) : 0) / BK;
+}
+__device__ __forceinline__ int tile_count(int q0, int s, int window) {
+  return (min(q0 + BQ, s) - 1) / BK - first_tile(q0, window) + 1;
+}
+
+// The producer's wait for a ring stage to empty: no timeout, which the
+// 24 registers of its warpgroup do not hold.  It cannot wait forever on
+// its own: the consumers release every stage they fill, and a consumer
+// whose wait times out traps the grid.
+__device__ __forceinline__ void wait_empty(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+}
+
+// The producer (one thread), query tile after query tile: the K and V
+// tiles in the order the consumers read them, K_0, K_1, V_0, K_2, V_1,
+// ..., each into its ring stage once both consumer warpgroups have
+// released that stage's last tile, and Q after K_0, into the buffer
+// (query tile j of the CTA: buffer j % Q_BUFS) that query tile j - 2
+// has left.  A wait on an empty barrier's first phase (parity 1) passes.
+template <int D, int DV, bool PAIRED>
+__device__ __forceinline__ void produce(uint8_t* smem, Barriers& b,
+                                        const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int s,
+                                        int window, int n_bh, int group) {
+  using L = Layout<D, DV>;
+  constexpr int CQ = L::CQ, CV = L::CV, Q_BUFS = PAIRED ? 2 : 1;
+  uint8_t* ring = smem + L::ring_off(Q_BUFS);
+  Ring<L::stages(Q_BUFS)> kr, vr;
+  Ring<Q_BUFS> qr;  // the Q buffer of the next query tile
+  for (int id = blockIdx.x; id < Work<PAIRED>::slots(s, n_bh);
+       id += gridDim.x) {
+    const Work<PAIRED> w(id, s, n_bh, group);
+    for (int n = 0; n < w.tiles(); ++n) {
+      const int q0 = w.q0(n), t_first = first_tile(q0, window);
+      const int n_tiles = tile_count(q0, s, window);
+      for (int i = 0; i <= n_tiles; ++i) {
+        if (i < n_tiles) {
+          wait_empty(&b.k_empty[kr.st], kr.ph ^ 1);
+          bar_expect_tx(&b.k_full[kr.st], L::K_BYTES);
+          for (int c = 0; c < D / CQ; ++c)
+            tma_load(ring + kr.st * L::STAGE_BYTES + c * BK * CQ * 2, tk,
+                     &b.k_full[kr.st], c * CQ, (t_first + i) * BK, w.bh);
+          kr.next();
+        }
+        if (i == 0) {
+          wait_empty(&b.q_empty[qr.st], qr.ph ^ 1);
+          bar_expect_tx(&b.q_full[qr.st], L::Q_BYTES);
+          for (int c = 0; c < D / CQ; ++c)
+            tma_load(smem + L::Q_OFF + qr.st * L::Q_BYTES + c * BQ * CQ * 2,
+                     tq, &b.q_full[qr.st], c * CQ, q0, w.bh);
+          qr.next();
+        } else {
+          wait_empty(&b.v_empty[vr.st], vr.ph ^ 1);
+          bar_expect_tx(&b.v_full[vr.st], L::V_BYTES);
+          for (int c = 0; c < DV / CV; ++c)
+            tma_load(ring + vr.st * L::STAGE_BYTES + L::K_BYTES +
+                         c * BK * CV * 2,
+                     tv, &b.v_full[vr.st], c * CV, (t_first + i - 1) * BK,
+                     w.bh);
+          vr.next();
+        }
+      }
+    }
+  }
+}
+
+// A consumer warpgroup: for each of the CTA's query tiles, rows r_wg ..
+// r_wg + 63 over its key tiles, then the epilogue.  S_i = Q K_i^T and
+// P_{i-1} V_{i-1} are issued together, and the softmax of tile i runs
+// while P_{i-1} V_{i-1} is on the tensor cores; the rescale by alpha_i
+// follows that product, so the accumulator sums what the serial order
+// sums, in its order.  Named barriers 1 and 2 hand the turn to issue
+// between the warpgroups, so that one's softmax overlaps the other's
+// products (each warpgroup takes n_tiles turns a query tile and passes
+// each on, but for warpgroup 1's last; warpgroup 1 passes first, so 0
+// starts).  Both warpgroups walk the query tile's n_tiles, also one whose
+// rows all lie past s.
+template <int D, int DV, bool PAIRED>
+__device__ __forceinline__ void consume(uint8_t* smem, Barriers& b,
+                                        const CUtensorMap* to, int wg, int s,
+                                        int window, float scale_log2,
+                                        int n_bh, int group) {
+  using L = Layout<D, DV>;
+  constexpr int CQ = L::CQ, CV = L::CV, Q_BUFS = PAIRED ? 2 : 1;
+  // at dv 128 a timed-out wait traps through a call (hopper.cuh)
+  constexpr bool OUT_OF_LINE = DV > 64;
+  const uint32_t ring = smem_u32(smem + L::ring_off(Q_BUFS));
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int col0 = 2 * (lane & 3);
+  const auto turn_wait = [&] {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+  };
+  const auto turn_pass = [&] {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+  };
+  const auto release = [&](uint64_t* bar) {
+    if (lane == 0) bar_arrive(bar);
+    __syncwarp();
+  };
+
+  Ring<L::stages(Q_BUFS)> cur;  // the K (and V) tile of the next Q K^T
+  Ring<Q_BUFS> qr;                // the Q buffer of the next query tile
+  for (int id = blockIdx.x; id < Work<PAIRED>::slots(s, n_bh);
+       id += gridDim.x) {
+    const Work<PAIRED> w(id, s, n_bh, group);
+    for (int n = 0; n < w.tiles(); ++n) {
+      const int q0 = w.q0(n), t_first = first_tile(q0, window);
+      const int n_tiles = tile_count(q0, s, window);
+      const int r_wg = q0 + wg * 64;
+      // accumulator fragments: this thread holds rows row0 and row0 + 8
+      // and, in every 8-column block j, columns 8j + col0 and 8j + col0 + 1
+      const int row0 = r_wg + warp * 16 + (lane >> 2);
+      const int qb = qr.st;
+      const uint32_t sq =
+          smem_u32(smem + L::Q_OFF + qb * L::Q_BYTES) + wg * 64 * CQ * 2;
+      float acc[DV / 2], sc[BK / 2], m[2] = {NEG_INF, NEG_INF};
+      float l[2] = {0.f, 0.f}, alpha[2];
+      uint32_t pa[BK / 4];
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+      bar_wait<OUT_OF_LINE>(&b.q_full[qb], qr.ph);
+      qr.next();
+      __syncwarp();  // reconverge before the warpgroup-wide instructions
+
+      if (wg == 1) turn_pass();
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+      bar_wait<OUT_OF_LINE>(&b.k_full[cur.st], cur.ph);
+      __syncwarp();
+      turn_wait();
+      pin(sc);
+      wg_fence();
+      issue_qk<D>(sc, sq, ring + cur.st * L::STAGE_BYTES);
+      wg_commit();
+      if (wg == 0 || n_tiles > 1) turn_pass();
+      wg_wait_all();
+      pin(sc);
+      release(&b.k_empty[cur.st]);
+      softmax_exp(sc, m, l, alpha, t_first * BK, r_wg, row0, col0, s, window,
+                  scale_log2);
+      pack_rescale<DV>(sc, acc, pa, alpha);
+      auto prv = cur;  // the V tile of the next P V
+      cur.next();
+      for (int i = 1; i < n_tiles; ++i) {
+        bar_wait<OUT_OF_LINE>(&b.k_full[cur.st], cur.ph);
+        bar_wait<OUT_OF_LINE>(&b.v_full[prv.st], prv.ph);
+        __syncwarp();
+        turn_wait();
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+        pin(sc);
+        pin(acc);
+        pin(pa);
+        // the operands' addresses anew at each issue, so that their
+        // descriptors are not kept live through the softmax
+        uint32_t q_at = sq, k_at = ring + cur.st * L::STAGE_BYTES,
+                 v_at = ring + prv.st * L::STAGE_BYTES + L::K_BYTES;
+        asm volatile("" : "+r"(q_at), "+r"(k_at), "+r"(v_at));
+        wg_fence();
+        issue_qk<D>(sc, q_at, k_at);
+        wg_commit();
+        issue_pv<DV>(acc, pa, v_at);
+        wg_commit();
+        if (wg == 0 || i + 1 < n_tiles) turn_pass();
+        wg_wait_one();  // S_i is in; P_{i-1} V_{i-1} may still run
+        pin(sc);
+        release(&b.k_empty[cur.st]);
+        softmax_exp(sc, m, l, alpha, (t_first + i) * BK, r_wg, row0, col0, s,
+                    window, scale_log2);
+        wg_wait_all();
+        pin(acc);
+        pin(pa);
+        release(&b.v_empty[prv.st]);
+        pack_rescale<DV>(sc, acc, pa, alpha);
+        prv = cur;
+        cur.next();
+      }
+      bar_wait<OUT_OF_LINE>(&b.v_full[prv.st], prv.ph);
+      __syncwarp();
+      pin(acc);
+      pin(pa);
+      wg_fence();
+      issue_pv<DV>(acc, pa, ring + prv.st * L::STAGE_BYTES + L::K_BYTES);
+      wg_commit();
+      wg_wait_all();
+      pin(acc);
+      pin(pa);
+      release(&b.v_empty[prv.st]);
+
+      // ---- epilogue: o = acc / max(l, 1e-30), bf16, into shared memory
+      // in the layout (and swizzle) TMA reads, then one bulk store per
+      // column chunk; TMA drops the rows past s ----
+      uint8_t* so = smem + L::o_off(Q_BUFS, qb);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float sum = l[h];
+        sum += __shfl_xor_sync(FULL, sum, 1);
+        sum += __shfl_xor_sync(FULL, sum, 2);
+        const float inv = 1.f / fmaxf(sum, 1e-30f);
+        const int r = row0 + 8 * h - q0;  // row within the query tile
+        const int swz = CV == 64 ? (r & 7) : ((r >> 1) & 3);
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j) {
+          const int chunk = 8 * j / CV, group = (8 * j % CV) / 8;
+          *reinterpret_cast<uint32_t*>(so + chunk * BQ * CV * 2 + r * CV * 2 +
+                                       (group ^ swz) * 16 + col0 * 2) =
+              pack_bf16(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
+      if ((threadIdx.x & 127) == 0) {
+        for (int c = 0; c < DV / CV; ++c)
+          tma_store(to, so + c * BQ * CV * 2 + wg * 64 * CV * 2, c * CV, r_wg,
+                    w.bh);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        bar_arrive(&b.q_empty[qb]);  // a later query tile may take them
+      }
+    }
+  }
+}
+
+// Warp specialisation in one top-level branch on the warpgroup, so that
+// ptxas knows the register count at each setmaxnreg (168 at entry, from
+// __launch_bounds__(384, 1)): the producer warpgroup's four warps drop to
+// PRODUCER_REGS and one thread loads; the consumer warpgroups rise to
+// CONSUMER_REGS.  The named barriers (turns 1 and 2, epilogue 3 and 4)
+// count consumer threads only.
+template <int D, int DV, bool PAIRED>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap to, int s, int window,
-                 float scale_log2) {
-  using L = Layout<D, DV>;
-  constexpr int CQ = L::CQ, CV = L::CV, STAGES = L::STAGES;
+                 float scale_log2, int n_bh, int group) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + STAGES;
-  uint64_t* empty = v_full + STAGES;
-
-  const int n_qt = (s + BQ - 1) / BQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.y) * BQ;  // heaviest tiles first
-  const int bh = blockIdx.x;
-  const int t_first = (window > 0 ? max(0, q0 - window + 1) : 0) / BK;
-  const int n_tiles = (min(q0 + BQ, s) - 1) / BK - t_first + 1;
+  Barriers& b = *reinterpret_cast<Barriers*>(smem);
 
   if (threadIdx.x == 0) {
-    bar_init(q_full, 1);
-    for (int i = 0; i < STAGES; ++i) {
-      bar_init(k_full + i, 1);
-      bar_init(v_full + i, 1);
-      bar_init(empty + i, CONSUMERS);
+    for (int i = 0; i < 2; ++i) {
+      bar_init(&b.q_full[i], 1);
+      bar_init(&b.q_empty[i], CONSUMERS / 128);
+    }
+    for (int i = 0; i < MAX_STAGES; ++i) {
+      bar_init(&b.k_full[i], 1);
+      bar_init(&b.v_full[i], 1);
+      bar_init(&b.k_empty[i], CONSUMERS / 32);
+      bar_init(&b.v_empty[i], CONSUMERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= CONSUMERS) {  // the producer warp: one thread issues
-    if (threadIdx.x == CONSUMERS) {
-      bar_expect_tx(q_full, L::Q_BYTES);
-      for (int c = 0; c < D / CQ; ++c)
-        tma_load(smem + c * BQ * CQ * 2, &tq, q_full, c * CQ, q0, bh);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % STAGES, k0 = (t_first + i) * BK;
-        bar_wait(empty + st, ((i / STAGES) & 1) ^ 1);
-        bar_expect_tx(k_full + st, L::K_BYTES);
-        for (int c = 0; c < D / CQ; ++c)
-          tma_load(smem + L::K_OFF + st * L::K_BYTES + c * BK * CQ * 2, &tk,
-                   k_full + st, c * CQ, k0, bh);
-        bar_expect_tx(v_full + st, L::V_BYTES);
-        for (int c = 0; c < DV / CV; ++c)
-          tma_load(smem + L::V_OFF + st * L::V_BYTES + c * BK * CV * 2, &tv,
-                   v_full + st, c * CV, k0, bh);
-      }
-    }
-    return;
-  }
-
-  // ---- consumers: warpgroup wg owns query rows r_wg .. r_wg + 63 ----
-  const int wg = threadIdx.x >> 7;
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int r_wg = q0 + wg * 64;
-  // accumulator fragments: this thread holds rows row0 and row0 + 8 and,
-  // in every 8-column block j, columns 8j + col0 and 8j + col0 + 1
-  const int row0 = r_wg + warp * 16 + (lane >> 2);
-  const int col0 = 2 * (lane & 3);
-  const uint32_t sq = smem_u32(smem) + wg * 64 * CQ * 2;
-  const uint32_t sk0 = smem_u32(smem + L::K_OFF);
-  const uint32_t sv0 = smem_u32(smem + L::V_OFF);
-
-  float acc[DV / 2], sc[BK / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float alpha[2];
-  uint32_t pa[BK / 4];
-#pragma unroll
-  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
-  bar_wait(q_full, 0);
-  __syncwarp();  // reconverge before the warpgroup-wide instructions
-
-  if constexpr (DV <= 64) {
-    // Overlapped: S_i = Q K_i^T and P_{i-1} V_{i-1} are issued together,
-    // and the softmax of tile i runs while P_{i-1} V_{i-1} is on the
-    // tensor cores.  Named barriers 1 and 2 hand the turn to issue between
-    // the warpgroups, so that one's softmax overlaps the other's products
-    // (each warpgroup takes n_tiles turns and passes each on, but for
-    // warpgroup 1's last; warpgroup 1 passes first, so 0 starts).
-    const auto turn_wait = [&] {
-      asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
-    };
-    const auto turn_pass = [&] {
-      asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
-    };
-    if (wg == 1) turn_pass();
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
-    bar_wait(k_full, 0);
-    __syncwarp();
-    turn_wait();
-    pin(sc);
-    wg_fence();
-    issue_qk<D>(sc, sq, sk0);
-    wg_commit();
-    if (wg == 0 || n_tiles > 1) turn_pass();
-    wg_wait_all();
-    pin(sc);
-    softmax_exp(sc, m, l, alpha, t_first * BK, r_wg, row0, col0, s, window,
-                scale_log2);
-    pack_rescale<DV>(sc, acc, pa, alpha);
-    for (int i = 1; i < n_tiles; ++i) {
-      const int st = i % STAGES, prev = (i - 1) % STAGES;
-      bar_wait(k_full + st, (i / STAGES) & 1);
-      bar_wait(v_full + prev, ((i - 1) / STAGES) & 1);
-      __syncwarp();
-      turn_wait();
-#pragma unroll
-      for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
-      pin(sc);
-      pin(acc);
-      pin(pa);
-      wg_fence();
-      issue_qk<D>(sc, sq, sk0 + st * L::K_BYTES);
-      wg_commit();
-      issue_pv<DV>(acc, pa, sv0 + prev * L::V_BYTES);
-      wg_commit();
-      if (wg == 0 || i + 1 < n_tiles) turn_pass();
-      wg_wait_one();  // S_i is in; P_{i-1} V_{i-1} may still run
-      pin(sc);
-      softmax_exp(sc, m, l, alpha, (t_first + i) * BK, r_wg, row0, col0, s,
-                  window, scale_log2);
-      wg_wait_all();
-      pin(acc);
-      pin(pa);
-      bar_arrive(empty + prev);  // stage i-1's K and V are consumed
-      pack_rescale<DV>(sc, acc, pa, alpha);
-    }
-    const int last = (n_tiles - 1) % STAGES;
-    bar_wait(v_full + last, ((n_tiles - 1) / STAGES) & 1);
-    __syncwarp();
-    pin(acc);
-    pin(pa);
-    wg_fence();
-    issue_pv<DV>(acc, pa, sv0 + last * L::V_BYTES);
-    wg_commit();
-    wg_wait_all();
-    pin(acc);
-    pin(pa);
-    bar_arrive(empty + last);
+  // 0 and 1: consumers; 2: the producer.  Read from lane 0, so that
+  // ptxas sees a warp-uniform branch
+  const int wg = __shfl_sync(FULL, (int)threadIdx.x >> 7, 0);
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS)
+      produce<D, DV, PAIRED>(smem, b, &tq, &tk, &tv, s, window, n_bh,
+                             group);
   } else {
-    // Serial: at DV 128 the accumulator, S and P of the overlapped
-    // schedule do not fit in the 168 registers a thread has here.
-    for (int i = 0; i < n_tiles; ++i) {
-      const int st = i % STAGES;
-      const uint32_t parity = (i / STAGES) & 1;
-#pragma unroll
-      for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
-      bar_wait(k_full + st, parity);
-      __syncwarp();
-      pin(sc);
-      wg_fence();
-      issue_qk<D>(sc, sq, sk0 + st * L::K_BYTES);
-      wg_commit();
-      wg_wait_all();
-      pin(sc);
-      softmax_exp(sc, m, l, alpha, (t_first + i) * BK, r_wg, row0, col0, s,
-                  window, scale_log2);
-      pack_rescale<DV>(sc, acc, pa, alpha);
-      bar_wait(v_full + st, parity);
-      __syncwarp();
-      pin(acc);
-      pin(pa);
-      wg_fence();
-      issue_pv<DV>(acc, pa, sv0 + st * L::V_BYTES);
-      wg_commit();
-      wg_wait_all();
-      pin(acc);
-      pin(pa);
-      bar_arrive(empty + st);  // this stage's K and V are consumed
-    }
-  }
-
-  // ---- epilogue: o = acc / max(l, 1e-30), bf16, into shared memory in
-  // the layout (and swizzle) TMA reads, then one bulk store per column
-  // chunk; TMA drops the rows past s ----
-  uint8_t* so = smem + L::O_OFF;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float sum = l[h];
-    sum += __shfl_xor_sync(FULL, sum, 1);
-    sum += __shfl_xor_sync(FULL, sum, 2);
-    const float inv = 1.f / fmaxf(sum, 1e-30f);
-    const int r = row0 + 8 * h - q0;  // row within the CTA's tile
-    const int swz = CV == 64 ? (r & 7) : ((r >> 1) & 3);
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
-      const int chunk = 8 * j / CV, group = (8 * j % CV) / 8;
-      *reinterpret_cast<uint32_t*>(so + chunk * BQ * CV * 2 + r * CV * 2 +
-                                   (group ^ swz) * 16 + col0 * 2) =
-          pack_bf16(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
-    }
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
-  if ((threadIdx.x & 127) == 0) {
-    for (int c = 0; c < DV / CV; ++c)
-      tma_store(&to, so + c * BQ * CV * 2 + wg * 64 * CV * 2, c * CV, r_wg,
-                bh);
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    consume<D, DV, PAIRED>(smem, b, &to, wg, s, window, scale_log2, n_bh,
+                           group);
   }
 }
 
@@ -904,6 +1095,30 @@ int encode(CUtensorMap* map, const void* ptr, int cols, int width, int64_t s,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// One query tile a CTA (PAIRED false) or two: the kernel for the
+// layout, its shared memory set once a device, launched on the grid.
+template <int D, int DV, bool PAIRED>
+int launch_grid(const CUtensorMap& tq, const CUtensorMap& tk,
+                const CUtensorMap& tv, const CUtensorMap& to, int64_t n_cta,
+                int64_t s, int win, float scale_log2, int64_t bh,
+                int64_t group, cudaStream_t stream) {
+  constexpr int SMEM = Layout<D, DV>::smem(PAIRED ? 2 : 1);
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64 && !ready[dev]) {
+    e = cudaFuncSetAttribute(flash_fwd_tc<D, DV, PAIRED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM);
+    if (e != cudaSuccess) return (int)e;
+    ready[dev] = true;
+  }
+  flash_fwd_tc<D, DV, PAIRED><<<(unsigned)n_cta, THREADS, SMEM, stream>>>(
+      tq, tk, tv, to, (int)s, win, scale_log2, (int)bh, (int)group);
+  return (int)cudaGetLastError();
+}
+
 // Tiles D and DV wide for head dims d <= D and dv <= DV: the columns past
 // d and dv load as zeros (adding nothing to q.k or to p.v) and the bulk
 // store drops them.
@@ -918,25 +1133,39 @@ int launch_t(const void* q, const void* k, const void* v, void* o,
   if (err == 0) err = encode(&tv, v, (int)dv, DV, s, bh, BK);
   if (err == 0) err = encode(&to, o, (int)dv, DV, s, bh, 64);
   if (err != 0) return err;
-  static bool ready[64] = {};
-  int dev = 0;
+  int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  if (dev < 64 && !ready[dev]) {
-    e = cudaFuncSetAttribute(flash_fwd_tc<D, DV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             L::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    ready[dev] = true;
-  }
-  const dim3 grid((unsigned)bh, (unsigned)((s + BQ - 1) / BQ));
-  // the scale of the real head dim, not of the tile
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
   // a window of at least s masks nothing
   const int win = window > 0 && window < s ? (int)window : -1;
-  flash_fwd_tc<D, DV><<<grid, THREADS, L::SMEM, stream>>>(
-      tq, tk, tv, to, (int)s, win, scale_log2);
-  return (int)cudaGetLastError();
+  // Pairs of query tiles, one CTA an SM, where the layout holds two Q
+  // buffers and the call is causal (every pair walks n_qt + 1 key tiles;
+  // under a window pairs differ), unless the pairs walk over 5% more key
+  // tiles an SM than single tiles spread evenly: there heaviest-first
+  // single tiles, a CTA each, balance better (tools/flash_ab.py, NVIDIA
+  // H100 80GB HBM3: pairs 2.6% slower at (56, 1024, 64), 224 pairs on
+  // 132 SMs, 18 tiles an SM against 16; faster at qwen3-14b's,
+  // qwen2-vl-72b's, phi3-mini's, zamba2's, qwen2-moe's and whisper's)
+  const int64_t n_qt = (s + BQ - 1) / BQ, n_pairs = bh * ((n_qt + 1) / 2);
+  const int64_t pair_tiles = (n_pairs + sms - 1) / sms * (n_qt + 1);
+  const int64_t single_tiles = (bh * n_qt * (n_qt + 1) / 2 + sms - 1) / sms;
+  const bool paired =
+      L::PAIRS && win < 0 && pair_tiles * 20 <= single_tiles * 21;
+  // the heads whose K and V (s * (d + dv) bf16 each) fit in GROUP_BYTES
+  const int64_t group = std::max<int64_t>(
+      1, std::min<int64_t>(bh, GROUP_BYTES / (s * (d + dv) * 2)));
+  // the scale of the real head dim, not of the tile
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+  if constexpr (L::PAIRS) {   // one CTA an SM walks its share of pairs
+    if (paired)
+      return launch_grid<D, DV, true>(tq, tk, tv, to,
+                                      std::min<int64_t>(n_pairs, sms), s,
+                                      win, scale_log2, bh, group, stream);
+  }
+  return launch_grid<D, DV, false>(tq, tk, tv, to, bh * n_qt, s, win,
+                                   scale_log2, bh, group, stream);
 }
 
 // Head dims 80, 96 and 120 run in the 128-column tile (two 64-column
@@ -982,15 +1211,22 @@ int launch_d(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
+// A pair's layout with one query tile a CTA (its deepest ring)
+template <int D, int DV>
+int64_t layout_of(int64_t* stages) {
+  *stages = Layout<D, DV>::STAGES1;
+  return Layout<D, DV>::smem(1);
+}
+
 template <int D>
 int64_t layout_dv(int64_t dv, int64_t* stages) {
   switch (dv) {
-    case 32: *stages = Layout<D, 32>::STAGES; return Layout<D, 32>::SMEM;
-    case 64: *stages = Layout<D, 64>::STAGES; return Layout<D, 64>::SMEM;
+    case 32: return layout_of<D, 32>(stages);
+    case 64: return layout_of<D, 64>(stages);
     case 80:
     case 96:
     case 120:
-    case 128: *stages = Layout<D, 128>::STAGES; return Layout<D, 128>::SMEM;
+    case 128: return layout_of<D, 128>(stages);
   }
   return 0;
 }
@@ -999,7 +1235,8 @@ int64_t layout_dv(int64_t dv, int64_t* stages) {
 }  // namespace
 
 // The bfloat16 kernel's dynamic shared memory per CTA at (d, dv), in
-// bytes, and its K/V ring depth in *stages (0: not a supported pair).
+// bytes, and its K/V ring depth in *stages (0: not a supported pair),
+// with one query tile a CTA.
 extern "C" int64_t flash_attention_layout(int64_t d, int64_t dv,
                                           int64_t* stages) {
   *stages = 0;
@@ -1011,11 +1248,27 @@ extern "C" int64_t flash_attention_layout(int64_t d, int64_t dv,
     case 120:
     case 128: return tc::layout_dv<128>(dv, stages);
     case 192:
-      if (dv != 128) return 0;
-      *stages = tc::Layout<192, 128>::STAGES;
-      return tc::Layout<192, 128>::SMEM;
+      return dv == 128 ? tc::layout_of<192, 128>(stages) : 0;
   }
   return 0;
+}
+
+// The bfloat16 kernel's threads a CTA, as the <128, 128> instantiation
+// (pairs of query tiles) was compiled (cudaFuncGetAttributes; 0 on an
+// error), and in *producer_regs, *consumer_regs the registers a thread
+// that setmaxnreg gives the producer warpgroup and each consumer
+// warpgroup; in *entry_regs the registers a thread at launch.
+extern "C" int64_t flash_attention_threads(int64_t* producer_regs,
+                                           int64_t* consumer_regs,
+                                           int64_t* entry_regs) {
+  *producer_regs = tc::PRODUCER_REGS;
+  *consumer_regs = tc::CONSUMER_REGS;
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, tc::flash_fwd_tc<128, 128, true>) !=
+      cudaSuccess)
+    return 0;
+  *entry_regs = attr.numRegs;
+  return attr.maxThreadsPerBlock;
 }
 
 // q, k: (bh, s, d); v: (bh, s, dv); o: (bh, s, dv), all contiguous, of

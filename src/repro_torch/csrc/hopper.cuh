@@ -34,8 +34,16 @@ __device__ __forceinline__ void bar_arrive(uint64_t* bar) {
                    smem_u32(bar))
                : "memory");
 }
+// The timeout's trap, out of line.  Inlined into code after a
+// setmaxnreg.inc, a trap keeps ptxas from allocating more registers than
+// a thread has at launch (flash_attention.cu's consumer warpgroups
+// spilled and had every wgmma serialised at dv 128); called, it does not.
+__device__ __noinline__ void wait_timed_out() { __trap(); }
+
 // Wait for the phase of the given parity to complete.  A wait that has
-// not completed after ~2^34 cycles (seconds) traps instead of hanging.
+// not completed after ~2^34 cycles (seconds) traps instead of hanging;
+// OUT_OF_LINE: through wait_timed_out, for code after a setmaxnreg.inc.
+template <bool OUT_OF_LINE = false>
 __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   long long start = -1;
@@ -51,7 +59,10 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     const long long now = clock64();
     if (start < 0) start = now;
-    else if (now - start > (1ll << 34)) __trap();
+    else if (now - start > (1ll << 34)) {
+      if constexpr (OUT_OF_LINE) wait_timed_out();
+      else __trap();
+    }
   }
 }
 

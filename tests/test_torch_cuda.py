@@ -515,12 +515,16 @@ def test_flash_attention_refuses_head_dims_it_is_not_built_for(gpu, d, dv):
 def test_flash_attention_built_pairs_mirror_the_library(gpu):
     """``BUILT[bfloat16]`` is the set of pairs that the library's
     ``flash_attention_layout`` reports a layout for, each with a K/V ring
-    of at least two stages."""
+    of at least two stages; and the kernel runs 384 threads a CTA (a
+    producer warpgroup and two consumer warpgroups), launched with 168
+    registers a thread, which setmaxnreg splits within the CTA's
+    registers."""
     import ctypes
     import itertools
 
     runtime.build(["flash_attention.cu"])
-    fn = runtime._LIBS["flash_attention.cu"].flash_attention_layout
+    lib = runtime._LIBS["flash_attention.cu"]
+    fn = lib.flash_attention_layout
     fn.restype = ctypes.c_int64
     fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     stages = ctypes.c_int64()
@@ -531,6 +535,41 @@ def test_flash_attention_built_pairs_mirror_the_library(gpu):
             laid.add((d, dv))
             assert stages.value >= 2, (d, dv, stages.value)
     assert laid == set(BUILT[torch.bfloat16])
+    threads = lib.flash_attention_threads
+    threads.restype = ctypes.c_int64
+    threads.argtypes = [ctypes.c_void_p] * 3
+    producer, consumer, entry = (ctypes.c_int64() for _ in range(3))
+    assert threads(ctypes.byref(producer), ctypes.byref(consumer),
+                   ctypes.byref(entry)) == 384
+    assert entry.value == 168
+    assert 24 <= producer.value < entry.value < consumer.value <= 256
+    assert 128 * producer.value + 256 * consumer.value <= 384 * entry.value
+
+
+# The 128-column value tile (d 80, 96, 120, 128 and MLA's (192, 128)) at
+# the edges of the overlapped, ping-pong schedule: one key tile (S <= 128),
+# an odd and an even tile count, S 1084 (warpgroup 1 of the last query
+# tile has no row below S and still takes and passes its turns), a window
+# that starts inside a key tile, and BH 1
+@pytest.mark.parametrize("bh,s,window", [
+    (1, 100, None), (2, 128, None), (2, 384, None), (2, 512, None),
+    (4, 1084, None), (2, 700, 200), (1, 1084, 300)])
+@pytest.mark.parametrize("d,dv", [(128, 128), (80, 80), (96, 96),
+                                  (120, 120), (192, 128)])
+def test_flash_attention_dv128_schedule_edges(gpu, d, dv, bh, s, window):
+    g = torch.Generator(device=gpu).manual_seed(s + d + dv)
+    q, k = (torch.randn(bh, s, d, generator=g, device=gpu).bfloat16()
+            for _ in range(2))
+    v = torch.randn(bh, s, dv, generator=g, device=gpu).bfloat16()
+    before = runtime.KERNELS["flash_attention"].launches
+    got = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["flash_attention"].launches == before + 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (bh, s, dv)
+    want = attention_plain(q, k, v, window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2 * 2.0 ** -6)
+    assert bf16_excess(got, want) <= 1
 
 
 # MLA (deepseek-v2): q.k 192 wide, values 128 (the serve's prefill call,

@@ -17,6 +17,14 @@ columns d-127 loaded as zeros and the output's dropped, with the scale
 of d; the emulation pads the same way.  MLA's (d, dv) = (192, 128)
 (deepseek-v2) runs in three 64-column chunks of q and k, no padding; it
 is emulated at the serve's row length of 1024.
+
+The kernel runs one schedule at every (d, dv): it issues P_{i-1} V_{i-1}
+with S_i = Q K_i^T and runs the softmax of tile i while that product is
+on the tensor cores, so P_{i-1} V_{i-1} is added after the softmax of
+tile i and before the rescale by alpha_i.  The emulation has that order
+("overlapped") beside the textbook one ("serial": rescale, then add
+P_i V_i), and the two give the same float32 output bit for bit: the
+overlap changes when a product is issued, not what is summed.
 """
 import math
 
@@ -35,12 +43,20 @@ TILE = {32: 32, 64: 64, 80: 128, 96: 128, 120: 128,
         128: 128, 192: 192}   # head dim -> tile columns
 
 
-def emulate(q, k, v, window=None, late_skip=0):
+def emulate(q, k, v, window=None, late_skip=0, order="overlapped"):
     """q, k: (BH, S, d), v: (BH, S, dv), bfloat16 -> (BH, S, dv) bfloat16,
     by the kernel's tiles and online softmax, in float32, with q, k and v
     zero-padded to the tile's columns.  ``late_skip`` plants a fault: the
     query tiles at or past the window start that many key tiles late
     (t_first + late_skip)."""
+    return emulate_f32(q, k, v, window, late_skip, order).bfloat16()
+
+
+def emulate_f32(q, k, v, window=None, late_skip=0, order="overlapped"):
+    """:func:`emulate` before the output is rounded to bfloat16.  order:
+    "serial" adds P_i V_i right after the rescale by alpha_i;
+    "overlapped" adds P_{i-1} V_{i-1} after tile i's softmax, before the
+    rescale by alpha_i, and the last tile's product after the loop."""
     bh, s, d = q.shape
     dv = v.shape[-1]
 
@@ -58,6 +74,7 @@ def emulate(q, k, v, window=None, late_skip=0):
         first = max(0, q0 - window + 1) // BK if window else 0
         if window and q0 >= window:
             first += late_skip
+        pending = None   # the product issued with the next tile's S
         for t in range(first, int(rows[-1]) // BK + 1):
             keys = torch.arange(t * BK, min(t * BK + BK, s))
             sc = torch.einsum("bqd,bkd->bqk", qf[:, rows], kf[:, keys])
@@ -70,11 +87,19 @@ def emulate(q, k, v, window=None, late_skip=0):
             e = torch.exp2(sc * c - (m_new * c)[..., None])
             l = l * alpha + e.sum(-1)
             p = e.bfloat16().float()            # rounded before p.V
-            acc = (acc * alpha[..., None]
-                   + torch.einsum("bqk,bkd->bqd", p, vf[:, keys]))
+            pv = torch.einsum("bqk,bkd->bqd", p, vf[:, keys])
+            if order == "serial":
+                acc = acc * alpha[..., None] + pv
+            else:
+                if pending is not None:
+                    acc = acc + pending
+                acc = acc * alpha[..., None]
+                pending = pv
             m = m_new
+        if pending is not None:
+            acc = acc + pending
         out[:, rows] = acc / l.clamp_min(1e-30)[..., None]
-    return out[..., :dv].bfloat16()
+    return out[..., :dv]
 
 
 def _inputs(bh, s, d, seed):
@@ -161,3 +186,22 @@ def test_per_element_bound_rejects_planted_faults(fault):
            "window_minus_1": lambda: emulate(q, k, v, 1023)}[fault]()
     x = bf16_excess(got, want)
     assert x <= 1 if fault is None else x > 1, x
+
+
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("d,dv", [(32, 32), (64, 64), (80, 80), (96, 96),
+                                  (120, 120), (128, 128), (192, 128)])
+def test_overlapped_order_equals_serial_bit_for_bit(d, dv, window):
+    """At every head dim of the kernel's tiles and MLA's (192, 128), S
+    1084 (9 query tiles, the last with 60 rows) and a window of 200 (its
+    edge inside a key tile): the kernel's issue order gives the serial
+    order's float32 output exactly."""
+    rs = np.random.default_rng(d + dv)
+    q, k = (torch.tensor(rs.standard_normal((2, 1084, d)).astype(
+        np.float32)).bfloat16() for _ in range(2))
+    v = torch.tensor(rs.standard_normal((2, 1084, dv)).astype(
+        np.float32)).bfloat16()
+    serial = emulate_f32(q, k, v, window, order="serial")
+    overlapped = emulate_f32(q, k, v, window, order="overlapped")
+    assert serial.dtype == torch.float32 and serial.shape == (2, 1084, dv)
+    assert torch.equal(overlapped, serial)
