@@ -15,9 +15,10 @@
 // in registers.  Any S works: keys and queries past S are masked and never
 // stored.  Key tiles wholly above the diagonal, or wholly outside the
 // window, are skipped, and the q tiles with the most key tiles run first
-// (on the tensor cores, within each group of heads).
+// (on the bfloat16 route, within each group of heads).
 //
-// Two routes, chosen by dtype in flash_attention_launch:
+// Two routes on the tensor cores, chosen by dtype in
+// flash_attention_launch:
 //
 // * bfloat16: the tensor-core kernel (namespace tc).  At the serve path's
 //   (BH = 56, S = 1024, d = 64) the call moves 29 MB (q, k, v read once,
@@ -94,18 +95,53 @@
 //     prefetch; O is staged in Q's bytes instead (Layout), which leaves
 //     two.  Every head reads the one rope key of a position, copied into
 //     each head's K by the caller.
-// * float32: the CUDA-core kernel (first namespace below, unchanged from
-//   the first port): 64 x 64 tiles in f32 shared memory, 256 threads, FMA
-//   on the CUDA cores.  It stays for float32 because a TF32 tensor-core
+// * float32: 3xTF32 on the tensor cores (namespace f32).  One TF32
 //   product keeps ~3 decimal digits, and the float32 smoke configs hold
-//   the card's logits to the CPU's within ~1e-6.  It is a documented
-//   dtype route, not a fallback: a bfloat16 call of a supported shape
-//   always takes the tensor-core kernel, and nothing retries on failure.
-//   It also takes head dim 16 (the federated transformer classifier's,
-//   whose no-grad forward runs here): one accumulator column a thread;
-//   and 96 and 120 (phi3-mini, h2o-danube3; their float32 smoke
-//   variants' card-vs-CPU parity), with dv == d; and MLA's (48, 32) and
-//   (192, 128) (the deepseek-v2 smoke config and its width-192 variant).
+//   the card's logits to the CPU's within ~1e-6.  So every product is
+//   three TF32 wgmmas into the same float32 accumulators: each operand a
+//   is split into big = a, which the tensor core reads truncated to
+//   TF32, and small = a - trunc(a), exact in float32, and small.big +
+//   big.small + big.big are summed (hopper.cuh's mma3, as ssd_scan.cu
+//   does it).  What bounds each float32 call on the H100:
+//   - the 25m preset's favg at --seq 1024, (BH 32, S 1024, d 64): 4.30
+//     GFLOP on the causal half, three products each: 0.026 ms at 495
+//     TFLOP/s (33.5 MB: 0.010 ms at 3.35 TB/s), so operations;
+//   - every other caller's call is small and latency-bound: MLA's smoke
+//     calls (8, 40, 192 -> 128) and (8, 40, 48 -> 32) run 8 CTAs, the
+//     transformer classifier's (400, 16, 16) 400 CTAs of 16 rows, the
+//     float32 presets' favg calls (32 and 48, 128, 64) 64 and 96 CTAs of
+//     one or two key tiles; their bytes take 0.06-1.9 us.  What a CTA
+//     waits for (a TMA round trip, each key tile's chain of splits,
+//     products and softmax, the launch) bounds them; no persistent
+//     schedule, which would only lengthen that chain.
+//   The design:
+//   - TMA loads Q once and K/V tiles into a ring of up to four stages,
+//     in 32-column chunks (128-byte swizzle; rows past S and columns past
+//     d zero-filled), one thread issuing, mbarriers signalling;
+//   - TF32 wgmma reads a shared-memory operand K-major only.  K lies so
+//     as loaded; its small part is split into a buffer of the same
+//     layout.  V is transposed in shared memory into V^T (dv, keys), big
+//     and small, the keys of each group of 8 in the order 0 2 4 6 1 3 5
+//     7, so that P goes from the score accumulator to the A fragment in
+//     place.  Q K^T reads Q big and small from shared memory;
+//   - every d is a multiple of 8: d / 8 k-steps, no padded column
+//     multiplied; P V takes n = dv rounded up to 32; a key tile is 64 keys
+//     (32 where shared memory is short, and for d, dv <= 32);
+//   - the online softmax runs on the accumulator fragments as the bf16
+//     route's does (masks only on tiles that cross the diagonal, the
+//     window edge or S; key tiles wholly outside the window skipped);
+//   - a warp cannot queue a product's 3 x d / 8 wgmmas ahead of its other
+//     work: issuing them takes most of the product's time.  So the
+//     CUDA-core work of a key tile (K's split, V's transpose, the
+//     softmax) overlaps the tensor cores only in other warps.  Rows of
+//     one key tile (the smoke and classifier calls) take flash_fwd_f32,
+//     one warpgroup and 64 query rows a CTA, which splits and transposes
+//     while its products run; at d, dv <= 64 longer rows take
+//     flash_fwd_f32_ws: a splitter warpgroup fills double-buffered Ks and
+//     V^T, and one multiplier warpgroup (rows of two key tiles: the favg
+//     calls) or two (longer rows, 128 query rows a CTA), taking turns to
+//     issue their products, multiply (tools/flash_phases.py shows each
+//     warpgroup's phases).
 //
 // The tensor maps are encoded on the host in flash_attention_launch with
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint (the
@@ -121,241 +157,691 @@
 
 #include "hopper.cuh"
 
-// ---------------------------------------------------------------------------
-// float32: the CUDA-core kernel
-// ---------------------------------------------------------------------------
-//
-// One CTA owns one (bh, 64-query tile) and loops over the 64-key tiles:
-// 256 threads as 16 x 16, each thread holds a 4 x 4 block of scores (rows
-// ty*4.., keys tx*4..) and 4 rows x DV/16 columns of the accumulator.  Q
-// (transposed), K (transposed), V and the tile's P live in shared memory
-// as f32, padded so that the float4 reads of the inner loops are
-// conflict-free.  The 16 threads of a row are 16 lanes of one warp, so
-// the row max and row sum are 4 shuffles each.
-
 namespace {
 
-constexpr int BQ = 64;       // query rows per CTA
-constexpr int BK = 64;       // keys per tile
-constexpr int THREADS = 256;
-constexpr int LQ = BQ + 4;   // padded row of the transposed Q and of P
-constexpr int LK = BK + 4;   // padded row of the transposed K
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on the tensor cores (wgmma + TMA)
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+using namespace hopper;
+
+constexpr int BQ = 64;        // query rows of a warpgroup
+constexpr int THREADS = 128;
+constexpr int MAX_STAGES = 4;  // K/V ring depth, as shared memory allows
+// Probes at the ends of the kernels' phases: tools/flash_phases.py
+// defines them to sum clock64() intervals; here they are empty
+#ifndef F32_PROBE
+#define F32_PROBE_START
+#define F32_PROBE(k)
+#define F32_PROBE_END(group, adder)
+#endif
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) {
-  return x;
+__host__ __device__ constexpr int pad32(int x) { return (x + 31) / 32 * 32; }
+__host__ __device__ constexpr int min_c(int a, int b) { return a < b ? a : b; }
+
+// Shared memory of a CTA, every tile in 32-column chunks of [rows][32]
+// (128-byte swizzle, each chunk 1024-byte aligned), head dims padded to
+// 32 columns (TMA zero-fills the rest): the mbarriers (the first 1024
+// bytes); Q (the CTA's QROWS rows) as TMA wrote it and its small part;
+// BUFS buffers of K's small part and V^T's big and small parts; then the
+// ring of K/V stages as TMA writes them.  BUFS is 1 for flash_fwd_f32,
+// whose one warpgroup splits, transposes and multiplies, and 2, where
+// they fit, for flash_fwd_f32_ws, whose splitter fills one buffer while
+// its multipliers read the other.  A key
+// tile is 64 keys where two stages fit beside the rest, else 32, and 32
+// for the narrow heads (d, dv <= 32: at 64 keys the classifier's 400
+// CTAs of 16 rows did not all fit on the card at once).  MAX_ST stages
+// fit; a launch takes no more than its key tiles need.
+__host__ __device__ constexpr int q_bytes(int d, int rows) {
+  return 2 * rows * pad32(d) * 4;
 }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
+__host__ __device__ constexpr int buf_bytes(int d, int dvp, int bk) {
+  return bk * pad32(d) * 4 + 2 * dvp * bk * 4;
+}
+__host__ __device__ constexpr int stage_bytes(int d, int dvp, int bk) {
+  return bk * (pad32(d) + dvp) * 4;
+}
+// 232448 bytes: the most dynamic shared memory a CTA may have on sm_90;
+// 1024 of alignment slack and the barriers' 1024
+constexpr int ROOM = 232448 - 2 * 1024;
+__host__ __device__ constexpr bool fits(int d, int dvp, int rows, int bk,
+                                        int bufs, int stages) {
+  return q_bytes(d, rows) + bufs * buf_bytes(d, dvp, bk) +
+             stages * stage_bytes(d, dvp, bk) <= ROOM;
 }
 
-__device__ __forceinline__ float max16(float v) {
-  for (int o = 1; o < 16; o <<= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-__device__ __forceinline__ float sum16(float v) {
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__host__ __device__ constexpr size_t smem_floats(int d, int dv) {
-  return (size_t)d * LQ + (size_t)d * LK + (size_t)BK * dv + (size_t)BK * LQ;
-}
-
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int s,
-                     int window, float scale) {
-  // columns of the accumulator per thread: ceil(DV/16), as float4
-  // groups of 64 columns apart when DV is 64 or 128, one run of DV/16 at
-  // DV 32, and single columns 16 apart at DV 80 and 96; at DV 120 (no
-  // multiple of 16) eight single columns, the last one past DV for half
-  // the threads, which neither read V there nor store it
-  constexpr bool RAGGED = DV % 16 != 0;
-  constexpr int CPT = (DV + 15) / 16;
-  constexpr int VEC = RAGGED ? 1 : CPT % 4 == 0 ? 4 : CPT < 4 ? CPT : 1;
-  constexpr int NG = CPT / VEC;
-  constexpr int GSTRIDE = 16 * VEC;
-
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;             // [D][LQ]   Q tile, transposed
-  float* kt = qt + D * LQ;      // [D][LK]   K tile, transposed
-  float* vs = kt + D * LK;      // [BK][DV]  V tile
-  float* pt = vs + BK * DV;     // [BK][LQ]  P tile, transposed
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int n_qt = (s + BQ - 1) / BQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.y) * BQ;  // heaviest tiles first
-  const size_t bh = blockIdx.x;
-  const T* qb = q + bh * s * D;
-  const T* kb = k + bh * s * D;
-  const T* vb = v + bh * s * DV;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D, row = q0 + r;
-    qt[c * LQ + r] = row < s ? to_f(qb[(size_t)row * D + c]) : 0.f;
+// MULT: 0 for flash_fwd_f32, else flash_fwd_f32_ws's multiplier
+// warpgroups (1 or 2)
+template <int D, int DVP, int MULT>
+struct Layout {
+  static constexpr int DP = pad32(D);
+  // query rows of a CTA: 64 a warpgroup that multiplies
+  static constexpr int QROWS = (MULT > 1 ? MULT : 1) * BQ;
+  static constexpr int WANT_BUFS = MULT > 0 ? 2 : 1;
+  static constexpr int BK =
+      DP + DVP <= 64 ? 32 : fits(D, DVP, QROWS, 64, WANT_BUFS, 2) ? 64 : 32;
+  static constexpr int BUFS =
+      fits(D, DVP, QROWS, BK, WANT_BUFS, 1) ? WANT_BUFS : 1;
+  static constexpr int Q_BYTES = QROWS * DP * 4;
+  static constexpr int K_BYTES = BK * DP * 4, V_BYTES = BK * DVP * 4;
+  static constexpr int BUF = K_BYTES + 2 * V_BYTES;
+  static constexpr int STAGE = K_BYTES + V_BYTES;
+  static constexpr int FIXED = 2 * Q_BYTES + BUFS * BUF;
+  static constexpr int MAX_ST = min_c((ROOM - FIXED) / STAGE, MAX_STAGES);
+  static_assert(MAX_ST >= 1, "a K/V stage does not fit");
+  // offsets after the barriers; buffer b: Ks, V^T big, V^T small
+  static constexpr int QB = 1024, QS = QB + Q_BYTES, BUF0 = QS + Q_BYTES;
+  static constexpr int RING = BUF0 + BUFS * BUF;
+  __host__ __device__ static constexpr int ks(int b) { return BUF0 + b * BUF; }
+  __host__ __device__ static constexpr int vtb(int b) {
+    return ks(b) + K_BYTES;
   }
-
-  float m[4], l[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  __host__ __device__ static constexpr int vts(int b) {
+    return vtb(b) + V_BYTES;
   }
+  __host__ __device__ static constexpr int smem(int stages) {
+    return RING + stages * STAGE + 1024;
+  }
+};
 
-  const int q_last = min(q0 + BQ, s) - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  for (int t = k_begin / BK; t <= q_last / BK; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i % D, key = k0 + r;
-      kt[c * LK + r] = key < s ? to_f(kb[(size_t)key * D + c]) : 0.f;
-    }
-    for (int i = tid; i < BK * DV; i += THREADS) {
-      const int r = i / DV, c = i % DV, key = k0 + r;
-      vs[r * DV + c] = key < s ? to_f(vb[(size_t)key * DV + c]) : 0.f;
-    }
-    __syncthreads();
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-    // ---- scores: 4 rows x 4 keys per thread ----
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      const float4 qa = *reinterpret_cast<const float4*>(&qt[c * LQ + ty * 4]);
-      const float4 ka = *reinterpret_cast<const float4*>(&kt[c * LK + tx * 4]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-
-    // ---- online softmax over this tile ----
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      bool ok[4];
-      float rmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx * 4 + j;
-        ok[j] = kp <= qp && kp < s && (window <= 0 || qp - kp < window);
-        sc[i][j] = ok[j] ? sc[i][j] * scale : NEG_INF;
-        rmax = fmaxf(rmax, sc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], max16(rmax));
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = ok[j] ? expf(sc[i][j] - m_new) : 0.f;
-        rsum += e;
-        p[i][j] = to_f(from_f<T>(e));  // p in the input type for p.V
-      }
-      l[i] = l[i] * alpha + sum16(rsum);
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&pt[(tx * 4 + j) * LQ + ty * 4]) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-    __syncthreads();
-
-    // ---- acc += P V over the tile's keys ----
+// The small part of a float32 tile of BYTES bytes into another (the
+// same layout: the split is per element), by a warpgroup.
+template <int BYTES>
+__device__ __forceinline__ void split_tile(const uint8_t* big,
+                                           uint8_t* small, int tid) {
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 pa = *reinterpret_cast<const float4*>(&pt[kk * LQ + ty * 4]);
-      const float pr[4] = {pa.x, pa.y, pa.z, pa.w};
-      float vv[CPT];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float* src = &vs[kk * DV + g * GSTRIDE + tx * VEC];
-        if constexpr (VEC == 4) {
-          const float4 x = *reinterpret_cast<const float4*>(src);
-          vv[g * 4 + 0] = x.x;
-          vv[g * 4 + 1] = x.y;
-          vv[g * 4 + 2] = x.z;
-          vv[g * 4 + 3] = x.w;
-        } else if constexpr (RAGGED) {
-          vv[g] = g * GSTRIDE + tx < DV ? src[0] : 0.f;
-        } else {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) vv[g * VEC + e] = src[e];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
-    }
-  }
+  for (int i = tid; i < BYTES / 16; i += THREADS)
+    reinterpret_cast<float4*>(small)[i] =
+        tf32_rest(reinterpret_cast<const float4*>(big)[i]);
+}
 
-  T* ob = o + bh * s * DV;
+// The splitter's work on key tile i: K's small part into Ks and V
+// transposed and split into V^T (as split_tile and hopper.cuh's
+// transpose_split do it), every load issued before `wait` (for the
+// buffer to be free) and the first store: in a loop, each load waits for
+// the store before it, and the splitter's 4 warps, one an SM quarter,
+// cannot hide that.  NC threads; a thread's share is whole.
+template <int K_BYTES, int DVP, int BK, int NC, typename Wait>
+__device__ __forceinline__ void split_key_tile(const uint8_t* st,
+                                               uint8_t* ks, uint8_t* vtb,
+                                               uint8_t* vts, int tid,
+                                               Wait wait) {
+  constexpr int NK = K_BYTES / 16 / NC, NV = DVP * (BK / 4) / NC;
+  static_assert(K_BYTES / 16 % NC == 0 && DVP * (BK / 4) % NC == 0,
+                "a thread's share is not whole");
+  const uint8_t* xs = st + K_BYTES;  // V as TMA wrote it
+  float4 k[NK], v[NV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= s) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+  for (int j = 0; j < NK; ++j)
+    k[j] = reinterpret_cast<const float4*>(st)[tid + NC * j];
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
+  for (int j = 0; j < NV; ++j) {
+    const int it = tid + NC * j, p = it % DVP, grp = it / DVP;
+    const int key0 = 8 * (grp >> 1) + (grp & 1);
+    v[j].x = *reinterpret_cast<const float*>(xs + swz(key0, p, BK));
+    v[j].y = *reinterpret_cast<const float*>(xs + swz(key0 + 2, p, BK));
+    v[j].z = *reinterpret_cast<const float*>(xs + swz(key0 + 4, p, BK));
+    v[j].w = *reinterpret_cast<const float*>(xs + swz(key0 + 6, p, BK));
+  }
+  wait();
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const int col = g * GSTRIDE + tx * VEC + e;
-        if (!RAGGED || col < DV)
-          ob[(size_t)row * DV + col] = from_f<T>(acc[i][g * VEC + e] / den);
-      }
+  for (int j = 0; j < NK; ++j)
+    reinterpret_cast<float4*>(ks)[tid + NC * j] = tf32_rest(k[j]);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int it = tid + NC * j, p = it % DVP, kk = 4 * (it / DVP);
+    *reinterpret_cast<float4*>(vtb + swz(p, kk, DVP)) = v[j];
+    *reinterpret_cast<float4*>(vts + swz(p, kk, DVP)) = tf32_rest(v[j]);
   }
 }
 
-template <typename T, int D, int DV>
-int launch_t(const void* q, const void* k, const void* v, void* o,
-             int64_t bh, int64_t s, int64_t window, cudaStream_t stream) {
+// S = Q K^T, 3xTF32, both operands in shared memory (Q: the warpgroup's
+// 64 rows of a QROWS-row tile): D / 8 k-steps (every head dim is a
+// multiple of 8: no padded column is multiplied).
+template <int D, int BK, int QROWS>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t qb,
+                                        uint32_t qs, uint32_t kb,
+                                        uint32_t ks) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    mma3(sc, kdesc(qb, kk, QROWS), kdesc(qs, kk, QROWS), kdesc(kb, kk, BK),
+         kdesc(ks, kk, BK));
+}
+
+// acc += P V, 3xTF32: P's A fragments are the score accumulator's own
+// registers (V^T's keys in the order 0 2 4 6 1 3 5 7 in each 8), its
+// small part beside them; V^T big and small in shared memory.
+template <int BK, int DVP>
+__device__ __forceinline__ void issue_pv(float (&acc)[DVP / 2],
+                                        const float (&p)[BK / 2],
+                                        const float (&ps)[BK / 2],
+                                        uint32_t vb, uint32_t vs) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const float a[4] = {p[4 * j], p[4 * j + 2], p[4 * j + 1], p[4 * j + 3]};
+    const float r[4] = {ps[4 * j], ps[4 * j + 2], ps[4 * j + 1],
+                        ps[4 * j + 3]};
+    mma3(acc, a, r, kdesc(vb, j, DVP), kdesc(vs, j, DVP));
+  }
+}
+
+// The online softmax of one key tile on the score fragments (element
+// 4j + 2h + c: row row0 + 8h, key k0 + col0 + 8j + c; a row lives in one
+// quad).  Only a tile that crosses the diagonal, the window edge or s is
+// masked.  The scores become p = exp(s - m) (exp2, scale * log2(e)
+// folded in), l takes their unrounded sum (this thread's columns; the
+// quad's add at the end) and alpha = exp(m_old - m_new).
+template <int BK>
+__device__ __forceinline__ void softmax(float (&sc)[BK / 2], float (&m)[2],
+                                        float (&l)[2], float (&alpha)[2],
+                                        int k0, int q0, int row0, int col0,
+                                        int s, int window,
+                                        float scale_log2) {
+  if (k0 + BK - 1 > q0 || k0 + BK > s ||
+      (window > 0 && q0 + BQ - 1 - k0 >= window)) {
+    // row r keeps keys max(0, r - window + 1) .. min(r, s - 1)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const int hi = min(row, s - 1) - k0 - col0;
+      const int lo = (window > 0 ? row - window + 1 : 0) - k0 - col0;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (8 * j + c > hi || 8 * j + c < lo)
+            sc[4 * j + 2 * h + c] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float part[BK / 8];  // the row max as a tree, not a chain
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      part[j] = fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]);
+#pragma unroll
+    for (int w = BK / 16; w >= 1; w /= 2)
+#pragma unroll
+      for (int j = 0; j < w; ++j) part[j] = fmaxf(part[j], part[j + w]);
+    float mx = fmaxf(m[h], part[0]);
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+    alpha[h] = exp2_approx((m[h] - mx) * scale_log2);
+    m[h] = mx;
+    const float mc = mx * scale_log2;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = sc[4 * j + 2 * h + c];
+        x = exp2_approx(fmaf(x, scale_log2, -mc));
+        sum[(2 * j + c) & 3] += x;
+      }
+    l[h] = l[h] * alpha[h] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+  }
+}
+
+// What both kernels share: a CTA's query tile (heaviest first), its key
+// tiles (from the first that the first row's window reaches), and the
+// TMA loads of Q and of key tile i into its stage of the ring.
+struct Tiles {
+  int bh, q0, t_first, n_tiles;
+  __device__ __forceinline__ Tiles(int s, int window, int n_bh, int bk,
+                                   int rows) {
+    const int n_qt = (s + rows - 1) / rows;
+    bh = (int)blockIdx.x % n_bh;
+    q0 = (n_qt - 1 - (int)blockIdx.x / n_bh) * rows;
+    t_first = (window > 0 ? max(0, q0 - window + 1) : 0) / bk;
+    n_tiles = (min(q0 + rows, s) - 1) / bk - t_first + 1;
+  }
+};
+
+template <typename L>
+__device__ __forceinline__ uint8_t* stage_of(uint8_t* smem, int i,
+                                             int stages) {
+  return smem + L::RING + (i % stages) * L::STAGE;
+}
+
+// Q's QROWS rows: a [QROWS][32] chunk a 32 columns, 64 rows a box
+template <typename L>
+__device__ __forceinline__ void load_q(uint8_t* smem, uint64_t* bar,
+                                       const CUtensorMap* tq,
+                                       const Tiles& w) {
+  bar_expect_tx(bar, L::Q_BYTES);
+  for (int c = 0; c < L::DP / 32; ++c)
+    for (int h = 0; h < L::QROWS / BQ; ++h)
+      tma_load(smem + L::QB + c * L::QROWS * 128 + h * BQ * 128, tq, bar,
+               32 * c, w.q0 + h * BQ, w.bh);
+}
+
+template <typename L, int DVP>
+__device__ __forceinline__ void load_tile(uint8_t* smem, uint64_t* full,
+                                          const CUtensorMap* tk,
+                                          const CUtensorMap* tv,
+                                          const Tiles& w, int i,
+                                          int stages) {
+  uint64_t* bar = full + i % stages;
+  uint8_t* st = stage_of<L>(smem, i, stages);
+  const int k0 = (w.t_first + i) * L::BK;
+  bar_expect_tx(bar, L::STAGE);
+  for (int c = 0; c < L::DP / 32; ++c)
+    tma_load(st + c * L::BK * 128, tk, bar, 32 * c, k0, w.bh);
+  for (int c = 0; c < DVP / 32; ++c)
+    tma_load(st + L::K_BYTES + c * L::BK * 128, tv, bar, 32 * c, k0, w.bh);
+}
+
+// The products and the softmax of a key tile for a warpgroup of 64 query
+// rows (the first q0; Q big and small at qb, qs, a QROWS-row tile), the
+// tile's K at st and Ks and V^T at buffer b: S = Q K^T, then the online
+// softmax, the rescale of acc, and P V (P's A fragments the score
+// accumulator's own registers, V^T's keys in the order 0 2 4 6 1 3 5 7
+// in each 8).  Hooks: `before_s` and `before_pv` run before a product is
+// issued, `between` while S is on the tensor cores, `after_s` once it is
+// done and `beside` while P V is.
+template <int D, int DVP, typename L, typename BeforeS, typename Between,
+          typename AfterS, typename BeforePV, typename Beside>
+__device__ __forceinline__ void key_tile(
+    uint8_t* smem, uint8_t* st, int b, uint32_t qb, uint32_t qs, int k0,
+    int q0, int row0, int col0, int s, int window, float scale_log2,
+    float (&acc)[DVP / 2], float (&m)[2], float (&l)[2], BeforeS before_s,
+    Between between, AfterS after_s, BeforePV before_pv, Beside beside) {
+  constexpr int BK = L::BK;
+  float sc[BK / 2], ps[BK / 2], alpha[2];
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+  before_s();
+  wg_fence();
+  issue_qk<D, BK, L::QROWS>(sc, qb, qs, smem_u32(st),
+                            smem_u32(smem + L::ks(b)));
+  wg_commit();
+  between();
+  wg_wait_all();
+  pin(sc);
+  after_s();
+  softmax<BK>(sc, m, l, alpha, k0, q0, row0, col0, s, window, scale_log2);
+#pragma unroll
+  for (int j = 0; j < DVP / 8; ++j) {
+    acc[4 * j + 0] *= alpha[0];
+    acc[4 * j + 1] *= alpha[0];
+    acc[4 * j + 2] *= alpha[1];
+    acc[4 * j + 3] *= alpha[1];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 2; ++j) ps[j] = tf32_rest(sc[j]);
+  before_pv();
+  wg_fence();
+  issue_pv<BK, DVP>(acc, sc, ps, smem_u32(smem + L::vtb(b)),
+                    smem_u32(smem + L::vts(b)));
+  wg_commit();
+  beside();
+  wg_wait_all();
+  pin(acc);
+  pin(sc);
+  pin(ps);
+}
+
+// o = acc / max(l, 1e-30): the rows below s, the columns below dv
+template <int DVP>
+__device__ __forceinline__ void store_o(float* o, const float (&acc)[DVP / 2],
+                                        const float (&l)[2], int bh,
+                                        int row0, int col0, int s, int dv) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(FULL, sum, 1);
+    sum += __shfl_xor_sync(FULL, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int row = row0 + 8 * h;
+    if (row >= s) continue;
+    float* orow = o + ((size_t)bh * s + row) * dv + col0;
+#pragma unroll
+    for (int j = 0; j < DVP / 8; ++j)
+      if (8 * j < dv)
+        *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(
+            acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+  }
+}
+
+// One warpgroup a CTA: it loads (thread 0), splits and transposes, and
+// multiplies.  Thread 0 issues Q and the first `stages` K/V tiles at the
+// start, each later tile as soon as the tile `stages` before it is
+// consumed (its Q K^T done and its V transposed).  A key tile: S_i
+// issued, V_i transposed and split into V^T while it runs; the softmax;
+// P_i V_i issued, K_{i+1}'s small part split off while it runs.  Two
+// CTA-wide barriers a tile hand Ks and V^T from the CUDA cores to the
+// tensor cores and back.  For rows of one key tile (no hand-off to wait
+// for, more CTAs an SM) and the pairs that have no split kernel.
+template <int D, int DVP>
+__global__ void __launch_bounds__(THREADS)
+    flash_fwd_f32(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  float* __restrict__ o, int s, int dv, int window,
+                  float scale_log2, int n_bh, int stages) {
+  using L = Layout<D, DVP, 0>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = q_full + 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Tiles w(s, window, n_bh, L::BK, BQ);
+  if (tid == 0) {
+    bar_init(q_full, 1);
+    for (int i = 0; i < stages; ++i) bar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load_q<L>(smem, q_full, &tq, w);
+    for (int i = 0; i < stages && i < w.n_tiles; ++i)
+      load_tile<L, DVP>(smem, full, &tk, &tv, w, i, stages);
+  }
+  __syncthreads();
+
+  // accumulator fragments: this thread holds rows row0 and row0 + 8 and,
+  // in every 8-column block j, columns 8j + col0 and 8j + col0 + 1
+  F32_PROBE_START
+  const int row0 = w.q0 + 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
+  float acc[DVP / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DVP / 2; ++i) acc[i] = 0.f;
+  bar_wait(q_full, 0);
+  split_tile<L::Q_BYTES>(smem + L::QB, smem + L::QS, tid);
+  bar_wait(full, 0);
+  split_tile<L::K_BYTES>(stage_of<L>(smem, 0, stages), smem + L::ks(0), tid);
+  fence_async();
+  __syncthreads();
+  F32_PROBE(0);
+  for (int i = 0; i < w.n_tiles; ++i) {
+    // here K_i's small part is in Ks and V^T is free
+    uint8_t* st = stage_of<L>(smem, i, stages);
+    key_tile<D, DVP, L>(
+        smem, st, 0, smem_u32(smem + L::QB), smem_u32(smem + L::QS),
+        (w.t_first + i) * L::BK, w.q0, row0, col0, s, window, scale_log2, acc,
+        m, l, [] {},
+        [&] {
+          F32_PROBE(1);
+          transpose_split<DVP, L::BK, THREADS>(
+              st + L::K_BYTES, smem + L::vtb(0), smem + L::vts(0), tid);
+          fence_async();
+          F32_PROBE(2);
+        },
+        [&] {
+          F32_PROBE(3);
+          __syncthreads();  // V^T is written; K_i and V_i are consumed
+          if (tid == 0 && i + stages < w.n_tiles)
+            load_tile<L, DVP>(smem, full, &tk, &tv, w, i + stages, stages);
+          __syncwarp();
+          F32_PROBE(4);
+        },
+        [] {},
+        [&] {
+          F32_PROBE(5);
+          if (i + 1 < w.n_tiles) {  // S_i is done everywhere: Ks is free
+            bar_wait(full + (i + 1) % stages, ((i + 1) / stages) & 1);
+            split_tile<L::K_BYTES>(stage_of<L>(smem, i + 1, stages),
+                                   smem + L::ks(0), tid);
+            fence_async();
+          }
+          F32_PROBE(6);
+        });
+    F32_PROBE(7);
+    __syncthreads();  // Ks is written; P_i V_i is done: V^T is free
+    F32_PROBE(8);
+  }
+  store_o<DVP>(o, acc, l, w.bh, row0, col0, s, dv);
+  F32_PROBE(9);
+  F32_PROBE_END(0, tid == 32)
+}
+
+// MULT + 1 warpgroups a CTA, for the rows of two key tiles or more: a
+// splitter (warpgroup MULT) splits K_i and transposes V_i into buffer
+// i % BUFS, and MULT multipliers (64 query rows each) run the products and
+// the softmax of key tile i from that buffer while the splitter fills the
+// other.  Two multipliers take turns to issue their products (named
+// barriers 2 and 3), so that one's softmax runs while the other's
+// products are on the tensor cores: a warp cannot queue a product's
+// wgmmas ahead of its other work, so one warpgroup alone leaves the
+// tensor cores idle through its softmax, and through any splitting and
+// transposing, which 4 warps an SM leave latency-bound.  The splitter's
+// thread 0 loads Q and the first `stages` K/V tiles; the multiplier that
+// finishes Q K_i^T last refills its stage (V_i was transposed before the
+// buffer was ready).  mbarriers: full (TMA), ready (a buffer is written:
+// the splitter's thread 0, after a barrier of its warpgroup) and freed
+// (its P V is done: the multipliers' warps).
+template <int D, int DVP, int MULT>
+__global__ void __launch_bounds__((MULT + 1) * THREADS, 1)
+    flash_fwd_f32_ws(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     float* __restrict__ o, int s, int dv, int window,
+                     float scale_log2, int n_bh, int stages) {
+  using L = Layout<D, DVP, MULT>;
+  constexpr int BUFS = L::BUFS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = q_full + 1;
+  uint64_t* ready = full + MAX_STAGES;
+  uint64_t* freed = ready + 2;
+  int* taken = reinterpret_cast<int*>(freed + 2);  // Q K^T done, a stage
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  // 0, 1: the multipliers; 2: the splitter (read from lane 0: a
+  // warp-uniform branch)
+  const int wg = __shfl_sync(FULL, (int)threadIdx.x >> 7, 0);
+  const Tiles w(s, window, n_bh, L::BK, L::QROWS);
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int i = 0; i < stages; ++i) {
+      bar_init(full + i, 1);
+      taken[i] = 0;
+    }
+    for (int b = 0; b < BUFS; ++b) {
+      bar_init(ready + b, 1);
+      bar_init(freed + b, 4 * MULT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == MULT) {  // the splitter
+    F32_PROBE_START
+    if (tid == 0) {
+      load_q<L>(smem, q_full, &tq, w);
+      for (int i = 0; i < stages && i < w.n_tiles; ++i)
+        load_tile<L, DVP>(smem, full, &tk, &tv, w, i, stages);
+    }
+    bar_wait(q_full, 0);
+    split_tile<L::Q_BYTES>(smem + L::QB, smem + L::QS, tid);
+    F32_PROBE(0);
+    for (int i = 0; i < w.n_tiles; ++i) {
+      const int b = i % BUFS;
+      bar_wait(full + i % stages, (i / stages) & 1);
+      F32_PROBE(1);
+      split_key_tile<L::K_BYTES, DVP, L::BK, THREADS>(
+          stage_of<L>(smem, i, stages), smem + L::ks(b), smem + L::vtb(b),
+          smem + L::vts(b), tid, [&] {
+            F32_PROBE(2);
+            if (i >= BUFS) bar_wait(freed + b, ((i - BUFS) / BUFS) & 1);
+            F32_PROBE(3);
+          });
+      fence_async();
+      F32_PROBE(4);
+      // the buffer is written, and V_i read
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      if (tid == 0) bar_arrive(ready + b);
+      __syncwarp();
+      F32_PROBE(5);
+    }
+    F32_PROBE_END(2, tid == 32)
+    return;
+  }
+
+  // a multiplier: rows q0 + 64 wg ..; the turns: wait on barrier 2 + wg,
+  // pass on 3 - wg (256 threads: both multipliers); its own barrier 4 + wg
+  F32_PROBE_START
+  const auto turn_wait = [wg] {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(2 + wg) : "memory");
+  };
+  const auto turn_pass = [wg] {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - wg) : "memory");
+  };
+  const int q0 = w.q0 + BQ * wg;
+  const int row0 = q0 + 16 * warp + (lane >> 2), col0 = 2 * (lane & 3);
+  const uint32_t qb = smem_u32(smem + L::QB) + wg * BQ * 128;
+  const uint32_t qs = smem_u32(smem + L::QS) + wg * BQ * 128;
+  float acc[DVP / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DVP / 2; ++i) acc[i] = 0.f;
+  bar_wait(q_full, 0);
+  if (MULT == 2 && wg == 1) turn_pass();  // multiplier 0 issues first
+  F32_PROBE(0);
+  for (int i = 0; i < w.n_tiles; ++i) {
+    const int b = i % BUFS;
+    bar_wait(ready + b, (i / BUFS) & 1);  // and, for i = 0, Q's small part
+    __syncwarp();
+    F32_PROBE(1);
+    key_tile<D, DVP, L>(
+        smem, stage_of<L>(smem, i, stages), b, qb, qs,
+        (w.t_first + i) * L::BK, q0, row0, col0, s, window, scale_log2, acc,
+        m, l,
+        [&] {
+          if constexpr (MULT == 2) turn_wait();
+        },
+        [&] {
+          if constexpr (MULT == 2) turn_pass();
+          F32_PROBE(2);
+        },
+        [&] {
+          F32_PROBE(3);
+          asm volatile("bar.sync %0, 128;\n" ::"r"(4 + wg) : "memory");
+          // K_i is read by this multiplier; the second to get here
+          // refills the stage
+          if (tid == 0 && atomicAdd(taken + i % stages, 1) == MULT - 1) {
+            atomicExch(taken + i % stages, 0);
+            if (i + stages < w.n_tiles)
+              load_tile<L, DVP>(smem, full, &tk, &tv, w, i + stages, stages);
+          }
+          __syncwarp();
+          F32_PROBE(4);
+        },
+        [&] {
+          if constexpr (MULT == 2) turn_wait();
+        },
+        [&] {
+          // multiplier 1 passes no turn after its last product
+          if (MULT == 2 && (wg == 0 || i + 1 < w.n_tiles)) turn_pass();
+          F32_PROBE(5);
+        });
+    F32_PROBE(6);
+    if (lane == 0) bar_arrive(freed + b);
+    __syncwarp();
+  }
+  store_o<DVP>(o, acc, l, w.bh, row0, col0, s, dv);
+  F32_PROBE(7);
+  F32_PROBE_END(wg == 0 ? 1 : 3, tid == 32)
+}
+
+// The (bh, s, cols) float32 tensor at ptr, in boxes of [rows][32]
+// (128-byte swizzle); rows past s and columns past cols read as zeros.
+int encode(CUtensorMap* map, const void* ptr, int64_t cols, int64_t s,
+           int64_t bh, int rows) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)s,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4,
+                                 (cuuint64_t)s * cols * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Head dim D, value dims up to DVP (a multiple of 32; V's columns past dv
+// load as zeros and are not stored), one kernel (MULT: Layout's): a CTA a
+// query tile, the ring as deep as the key tiles need and the layout
+// allows.
+template <int D, int DVP, int MULT>
+int launch_k(const void* q, const void* k, const void* v, void* o,
+             int64_t bh, int64_t s, int64_t dv, int64_t window,
+             cudaStream_t stream) {
+  using L = Layout<D, DVP, MULT>;
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, D, s, bh, BQ);
+  if (err == 0) err = encode(&tk, k, D, s, bh, L::BK);
+  if (err == 0) err = encode(&tv, v, dv, s, bh, L::BK);
+  if (err != 0) return err;
+  decltype(&flash_fwd_f32<D, DVP>) kernel;
+  if constexpr (MULT > 0) kernel = flash_fwd_f32_ws<D, DVP, MULT>;
+  else kernel = flash_fwd_f32<D, DVP>;
   static bool ready[64] = {};
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_floats(D, DV) * sizeof(float);
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
   if (dev < 64 && !ready[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, DV>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::smem(L::MAX_ST));
+    if (e != cudaSuccess) return (int)e;
     ready[dev] = true;
   }
-  const dim3 grid((unsigned)bh, (unsigned)((s + BQ - 1) / BQ));
-  const float scale = (float)(1.0 / sqrt((double)D));
-  flash_fwd_kernel<T, D, DV><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (int)s,
-      window > 0 ? (int)window : -1, scale);
+  const int64_t n_kt = (s + L::BK - 1) / L::BK;
+  const int64_t n_qt = (s + L::QROWS - 1) / L::QROWS;
+  const int stages = (int)std::min<int64_t>(L::MAX_ST, n_kt);
+  // a window of at least s masks nothing
+  const int win = window > 0 && window < s ? (int)window : -1;
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  kernel<<<(unsigned)(bh * n_qt), (MULT + 1) * THREADS, L::smem(stages),
+           stream>>>(tq, tk, tv, (float*)o, (int)s, (int)dv, win,
+                     scale_log2, (int)bh, stages);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+// Where the split kernels are built (d and dv <= 64: the presets' favg
+// calls), rows of two key tiles take one multiplier (64-row CTAs: twice
+// as many CTAs as 128-row ones, for calls of few heads) and longer rows
+// two; rows of one key tile, and the other pairs, the one-warpgroup
+// kernel (more CTAs an SM, no hand-off).
+template <int D, int DVP>
+int launch_t(const void* q, const void* k, const void* v, void* o,
+             int64_t bh, int64_t s, int64_t dv, int64_t window,
+             cudaStream_t st) {
+  if constexpr (D <= 64 && DVP <= 64) {
+    constexpr int BK = Layout<D, DVP, 1>::BK;
+    static_assert(BK == Layout<D, DVP, 2>::BK, "the split kernels' tiles");
+    const int64_t n_kt = (s + BK - 1) / BK;
+    if (n_kt == 2)
+      return launch_k<D, DVP, 1>(q, k, v, o, bh, s, dv, window, st);
+    if (n_kt > 2)
+      return launch_k<D, DVP, 2>(q, k, v, o, bh, s, dv, window, st);
+  }
+  return launch_k<D, DVP, 0>(q, k, v, o, bh, s, dv, window, st);
+}
+
+// dv 16 and 32 share the 32-column V tile, 80 takes 96
+template <int D>
 int launch_dv(const void* q, const void* k, const void* v, void* o,
               int64_t bh, int64_t s, int64_t dv, int64_t window,
               cudaStream_t st) {
   switch (dv) {
-    case 16: return launch_t<T, D, 16>(q, k, v, o, bh, s, window, st);
-    case 32: return launch_t<T, D, 32>(q, k, v, o, bh, s, window, st);
-    case 64: return launch_t<T, D, 64>(q, k, v, o, bh, s, window, st);
-    case 80: return launch_t<T, D, 80>(q, k, v, o, bh, s, window, st);
-    case 128: return launch_t<T, D, 128>(q, k, v, o, bh, s, window, st);
+    case 16:
+    case 32: return launch_t<D, 32>(q, k, v, o, bh, s, dv, window, st);
+    case 64: return launch_t<D, 64>(q, k, v, o, bh, s, dv, window, st);
+    case 80: return launch_t<D, 96>(q, k, v, o, bh, s, dv, window, st);
+    case 128: return launch_t<D, 128>(q, k, v, o, bh, s, dv, window, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -363,33 +849,58 @@ int launch_dv(const void* q, const void* k, const void* v, void* o,
 // Head dims 96 (phi3-mini) and 120 (h2o-danube3) take dv == d only; MLA's
 // (deepseek-v2) q.k widths take one value width each: d 48 (its smoke
 // config: nope 32 + rope 16) dv 32, and d 192 (nope 128 + rope 64) dv 128.
-template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o,
              int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
              cudaStream_t st) {
+  if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;  // TMA reads 16-byte aligned
   switch (d) {
-    case 16: return launch_dv<T, 16>(q, k, v, o, bh, s, dv, window, st);
-    case 32: return launch_dv<T, 32>(q, k, v, o, bh, s, dv, window, st);
+    case 16: return launch_dv<16>(q, k, v, o, bh, s, dv, window, st);
+    case 32: return launch_dv<32>(q, k, v, o, bh, s, dv, window, st);
     case 48:
-      if (dv == 32) return launch_t<T, 48, 32>(q, k, v, o, bh, s, window, st);
+      if (dv == 32) return launch_t<48, 32>(q, k, v, o, bh, s, dv, window, st);
       break;
-    case 64: return launch_dv<T, 64>(q, k, v, o, bh, s, dv, window, st);
-    case 80: return launch_dv<T, 80>(q, k, v, o, bh, s, dv, window, st);
+    case 64: return launch_dv<64>(q, k, v, o, bh, s, dv, window, st);
+    case 80: return launch_dv<80>(q, k, v, o, bh, s, dv, window, st);
     case 96:
-      if (dv == 96) return launch_t<T, 96, 96>(q, k, v, o, bh, s, window, st);
+      if (dv == 96) return launch_t<96, 96>(q, k, v, o, bh, s, dv, window, st);
       break;
     case 120:
       if (dv == 120)
-        return launch_t<T, 120, 120>(q, k, v, o, bh, s, window, st);
+        return launch_t<120, 128>(q, k, v, o, bh, s, dv, window, st);
       break;
-    case 128: return launch_dv<T, 128>(q, k, v, o, bh, s, dv, window, st);
+    case 128: return launch_dv<128>(q, k, v, o, bh, s, dv, window, st);
     case 192:
       if (dv == 128)
-        return launch_t<T, 192, 128>(q, k, v, o, bh, s, window, st);
+        return launch_t<192, 128>(q, k, v, o, bh, s, dv, window, st);
       break;
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// A pair's layout: its key tile, its deepest ring, and the bytes a CTA
+// asks for with that ring
+template <int D, int DVP>
+int64_t layout_of(int64_t* bk, int64_t* stages) {
+  using L = Layout<D, DVP, 0>;
+  *bk = L::BK;
+  *stages = L::MAX_ST;
+  return L::smem(L::MAX_ST);
+}
+
+template <int D>
+int64_t layout_dv(int64_t dv, int64_t* bk, int64_t* stages) {
+  switch (dv) {
+    case 16:
+    case 32: return layout_of<D, 32>(bk, stages);
+    case 64: return layout_of<D, 64>(bk, stages);
+    case 80: return layout_of<D, 96>(bk, stages);
+    case 128: return layout_of<D, 128>(bk, stages);
+  }
+  return 0;
+}
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bfloat16: the tensor-core kernel (wgmma + TMA)
@@ -1271,11 +1782,31 @@ extern "C" int64_t flash_attention_threads(int64_t* producer_regs,
   return attr.maxThreadsPerBlock;
 }
 
-// q, k: (bh, s, d); v: (bh, s, dv); o: (bh, s, dv), all contiguous, of
-// one type (dtype 0: float32 on the CUDA cores, 1: bfloat16 on the tensor
-// cores).  window <= 0: none.  Returns cudaGetLastError() (or the error of
-// the attribute call, of the tensor-map encoding, or of a misaligned
-// bfloat16 operand).
+// The float32 kernel at (d, dv): its key tile in *bk, its deepest K/V
+// ring in *stages, and the dynamic shared memory per CTA with that ring,
+// in bytes (0: not a supported pair).
+extern "C" int64_t flash_attention_f32_layout(int64_t d, int64_t dv,
+                                              int64_t* bk, int64_t* stages) {
+  *bk = *stages = 0;
+  switch (d) {
+    case 16: return f32::layout_dv<16>(dv, bk, stages);
+    case 32: return f32::layout_dv<32>(dv, bk, stages);
+    case 48: return dv == 32 ? f32::layout_of<48, 32>(bk, stages) : 0;
+    case 64: return f32::layout_dv<64>(dv, bk, stages);
+    case 80: return f32::layout_dv<80>(dv, bk, stages);
+    case 96: return dv == 96 ? f32::layout_of<96, 96>(bk, stages) : 0;
+    case 120: return dv == 120 ? f32::layout_of<120, 128>(bk, stages) : 0;
+    case 128: return f32::layout_dv<128>(dv, bk, stages);
+    case 192: return dv == 128 ? f32::layout_of<192, 128>(bk, stages) : 0;
+  }
+  return 0;
+}
+
+// q, k: (bh, s, d); v: (bh, s, dv); o: (bh, s, dv), all contiguous and
+// 16-byte aligned, of one type (dtype 0: float32, 3xTF32; 1: bfloat16),
+// both on the tensor cores.  window <= 0: none.  Returns
+// cudaGetLastError() (or the error of the attribute call, of the
+// tensor-map encoding, or of a misaligned operand).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int64_t bh,
                                       int64_t s, int64_t d, int64_t dv,
@@ -1283,7 +1814,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   if (bh <= 0 || s <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_d<float>(q, k, v, o, bh, s, d, dv, window, st);
+  if (dtype == 0) return f32::launch_d(q, k, v, o, bh, s, d, dv, window, st);
   if (dtype == 1) return tc::launch_d(q, k, v, o, bh, s, d, dv, window, st);
   return (int)cudaErrorInvalidValue;
 }

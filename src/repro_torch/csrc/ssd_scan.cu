@@ -92,29 +92,6 @@ constexpr int MAX_CHUNK = 256;
 constexpr int STAGES = 2;      // depth of the B/x ring
 constexpr unsigned FULL = 0xffffffffu;
 
-// Byte offset of element (r, k) of a [rows][width] float32 tile stored
-// as width / 32 chunks of [rows][32] in TMA's 128-byte swizzle (chunks
-// 1024-byte aligned).
-__device__ __forceinline__ int swz(int r, int k, int rows) {
-  return (k >> 5) * rows * 128 + r * 128 +
-         ((((k & 31) >> 2) ^ (r & 7)) << 4) + ((k & 3) << 2);
-}
-// K-major TF32 operand of `rows` rows in those chunks: k-step kk (8
-// columns, 32 bytes).
-__device__ __forceinline__ uint64_t kdesc(uint32_t base, int kk, int rows) {
-  return make_desc(base + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16, 1024,
-                   128);
-}
-
-// The part of v that a TF32 read of v drops (exact in float32).
-__device__ __forceinline__ float tf32_rest(float v) {
-  return v - __uint_as_float(__float_as_uint(v) & 0xffffe000u);
-}
-__device__ __forceinline__ float4 tf32_rest(float4 v) {
-  return make_float4(tf32_rest(v.x), tf32_rest(v.y), tf32_rest(v.z),
-                     tf32_rest(v.w));
-}
-
 constexpr float LOG2E = 1.4426950408889634f;
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -122,79 +99,9 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ void fence_async() {  // generic writes -> wgmma
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 template <int NC>
 __device__ __forceinline__ void consumer_sync() {  // the consumers only
   asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
-}
-
-// d (+)= A(64x8, registers) . B(Nx8, smem desc)^T, TF32, N = 64 or 32
-__device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
-                                    uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-__device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4],
-                                    uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-// 3xTF32: d += a.b as small.big + big.small + big.big, A's two parts
-// given (a, and its tf32_rest).  A fragment: a[0] (row g, k t), a[1]
-// (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4), rows 16 warp + g,
-// g = lane / 4, t = lane % 4.  The caller splits every A operand of a
-// batch of products before the first is issued and pins both parts
-// after the wait: registers that an issued wgmma still reads must not be
-// reused, or ptxas waits for it before the reuse.
-template <int NH>
-__device__ __forceinline__ void mma3(float (&d)[NH], const float (&a)[4],
-                                     const float (&rest)[4], uint64_t b_big,
-                                     uint64_t b_small) {
-  const uint32_t hi[4] = {__float_as_uint(a[0]), __float_as_uint(a[1]),
-                          __float_as_uint(a[2]), __float_as_uint(a[3])};
-  const uint32_t lo[4] = {__float_as_uint(rest[0]), __float_as_uint(rest[1]),
-                          __float_as_uint(rest[2]), __float_as_uint(rest[3])};
-  mma(d, lo, b_big);
-  mma(d, hi, b_small);
-  mma(d, hi, b_big);
-}
-template <int M>
-__device__ __forceinline__ void split(const float (&a)[M][4],
-                                      float (&rest)[M][4]) {
-#pragma unroll
-  for (int j = 0; j < M; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) rest[j][i] = tf32_rest(a[j][i]);
-}
-using hopper::pin;
-template <int M>
-__device__ __forceinline__ void pin(float (&r)[M][4]) {
-#pragma unroll
-  for (int j = 0; j < M; ++j) hopper::pin(r[j]);
 }
 
 // seg[i] = scale (a[0] + ... + a[i]) for i < chunk, by the NC consumer
@@ -225,29 +132,6 @@ __device__ void chunk_cumsum(const float* a, int chunk, float scale,
   for (int e = 0; e < E; ++e)
     if (tid * E + e < chunk) seg[tid * E + e] = (v[e] + off) * scale;
   consumer_sync<NC>();
-}
-
-// x tile [T keys][PP] (as TMA wrote it) -> x^T [PP][T], big and small
-// parts, the keys of each group of 8 in the order 0 2 4 6 1 3 5 7.
-template <int PP, int NC>
-__device__ __forceinline__ void transpose_x(const uint8_t* xs, uint8_t* big,
-                                            uint8_t* small, int tid) {
-  for (int it = tid; it < PP * 16; it += NC) {
-    const int p = it % PP, grp = it / PP;   // grp: 8-key group and half
-    const int k = 4 * grp;                  // = 8 (grp / 2) + 4 (grp % 2)
-    const int key0 = 8 * (grp >> 1) + (grp & 1);
-    float4 v;
-    v.x = *reinterpret_cast<const float*>(xs + swz(key0, p, T));
-    v.y = *reinterpret_cast<const float*>(xs + swz(key0 + 2, p, T));
-    v.z = *reinterpret_cast<const float*>(xs + swz(key0 + 4, p, T));
-    v.w = *reinterpret_cast<const float*>(xs + swz(key0 + 6, p, T));
-    *reinterpret_cast<float4*>(big + swz(p, k, PP)) = v;
-    *reinterpret_cast<float4*>(small + swz(p, k, PP)) = tf32_rest(v);
-  }
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
 // ---------------------------------------------------------------------------
@@ -327,7 +211,7 @@ __global__ void __launch_bounds__(LayoutA<PP, NP>::NC, 1)
     return smem + L::XT_OFF + (i & 1) * 2 * L::XT_BYTES;
   };
   const auto split_x = [&](int i) {
-    transpose_x<PP, NC>(stage_of(i) + L::B_BYTES, xt_of(i),
+    transpose_split<PP, T, NC>(stage_of(i) + L::B_BYTES, xt_of(i),
                         xt_of(i) + L::XT_BYTES, tid);
   };
   bar_wait(full, 0);
@@ -606,7 +490,7 @@ __global__ void __launch_bounds__(256, 1)
       reinterpret_cast<float4*>(b_small)[j] = tf32_rest(big[j]);
   };
   const auto split_x = [&](int i) {
-    transpose_x<PP, NC>(stage_of(i) + L::B_BYTES, xt_of(i),
+    transpose_split<PP, T, NC>(stage_of(i) + L::B_BYTES, xt_of(i),
                         xt_of(i) + L::XT_BYTES, tid);
   };
   bar_wait(full, 0);

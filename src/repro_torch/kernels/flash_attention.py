@@ -9,18 +9,22 @@ for CUDA tensors and runs :func:`attention_plain` (the reference's
 ``attention_ref``) for CPU tensors.  Unlike the reference's Pallas
 wrapper, any S works: the kernel masks the tail itself.
 
-On the GPU the dtype picks the route inside the same entry point:
-bfloat16 runs on the tensor cores (wgmma, K/V tiles by TMA), float32 on
-the CUDA cores in full float32 (a TF32 product would not keep the
-float32 smoke configs' logits within ~1e-6 of the CPU's).  The (d, dv)
-pairs each route is built for are :data:`BUILT`; any other pair raises
-ValueError before a launch.  On the tensor cores a dim of 80 (zamba2),
+On the GPU both dtypes run on the tensor cores (wgmma, K/V tiles by
+TMA), the route picked by dtype inside the same entry point.  bfloat16
+rounds p to bfloat16 before p.V; float32 keeps float32 accuracy in
+3xTF32: each operand a is split into trunc(a) (what TF32 reads) and
+a - trunc(a), and three products go into float32 accumulators, so the
+float32 smoke configs' logits stay within ~1e-6 of the CPU's (one TF32
+product keeps ~3 decimal digits and misses that).  The (d, dv) pairs
+each route is built for are :data:`BUILT`; any other pair raises
+ValueError before a launch.  On the bfloat16 route a dim of 80 (zamba2),
 96 (phi3-mini) or 120 (h2o-danube3) runs in the 128-column tile with its
 columns d-127 loaded as zeros, and MLA's (192, 128) (deepseek-v2) has an
-instantiation of its own.  On the CUDA cores 96 and 120 take dv == d
+instantiation of its own.  On the float32 route 96 and 120 take dv == d
 only, 16 is the transformer classifier's, and (48, 32) and (192, 128)
-are MLA's smoke widths.  The kernel is forward-only: a CUDA input that
-requires grad under grad mode raises ValueError (``runtime.refuse_grad``).
+are MLA's smoke widths.  Operands start on a 16-byte boundary (TMA
+reads them).  The kernel is forward-only: a CUDA input that requires
+grad under grad mode raises ValueError (``runtime.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -108,10 +112,9 @@ def flash_attention(q, k, v, window=None):
             f"({d}, {dv}) in {q.dtype}: it takes {sorted(BUILT[q.dtype])}")
     require(all(t.is_contiguous() for t in (q, k, v)),
             "flash_attention kernel operands must be contiguous")
-    require(q.dtype != torch.bfloat16
-            or all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
-            "flash_attention bfloat16 operands must start on a 16-byte "
-            "boundary (the kernel reads them with TMA)")
+    require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+            "flash_attention operands must start on a 16-byte boundary "
+            "(the kernel reads them with TMA)")
     out = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
     if out.numel():
         KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

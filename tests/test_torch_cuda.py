@@ -358,6 +358,17 @@ def test_flash_attention_refuses_misaligned_bf16(gpu):
         flash_attention(q, q, q)
 
 
+def test_flash_attention_refuses_misaligned_f32(gpu):
+    """The float32 route reads its operands with TMA too."""
+    buf = torch.randn(2 * 64 * 64 + 1, device=gpu)
+    q = buf[1:].view(2, 64, 64)          # contiguous, 4 bytes off 16
+    assert q.is_contiguous()
+    before = runtime.KERNELS["flash_attention"].launches
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+    assert runtime.KERNELS["flash_attention"].launches == before
+
+
 @pytest.mark.parametrize("n,c", [(160, 10), (33, 12), (1000, 10)])
 def test_distill_loss_kernel_matches_plain(gpu, n, c):
     g_ = torch.Generator(device=gpu).manual_seed(n)

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""The flash-attention kernel (B4, bfloat16) of two checkouts of the port,
-in turns, on one GPU, beside PyTorch's SDPA.
+"""The flash-attention kernel (B4) of two checkouts of the port, in turns,
+on one GPU, beside PyTorch's SDPA.
 
-    python3 tools/flash_ab.py OTHER_CHECKOUT [--calls NAME ...]
+    python3 tools/flash_ab.py OTHER_CHECKOUT [--dtype bfloat16|float32]
+                              [--calls NAME ...]
 
 Builds ``src/repro_torch/csrc/flash_attention.cu`` of OTHER_CHECKOUT and
 of this checkout with nvcc (the port's flags) into ``build/flash_ab/``,
-prints both checkouts' ptxas reports for the tensor-core instantiations
-(registers, spills, warnings), then, at each call of ``CALLS`` (the LM
-prefills' (BH, S, d, dv, window)), holds both against
-``attention_plain`` (a few heads at a time) within 2 * 2**-6 and
-``bf16_excess`` <= 1, and times them: device time per launch (CUDA
-graphs of launches, median over replays, CUDA events), in turns: other,
-this, SDPA, SDPA, this, other, three times.  Prints the medians, this /
-other, this / SDPA and the bound (the larger of the bytes over 3.35 TB/s
-and the operations over 989 TFLOP/s).  ``CHECKS`` (S 1084: the last
-query tile's second warpgroup has no row below S) are only held to the
-plain version.  Needs a CUDA GPU.
+prints both checkouts' ptxas reports for the dtype's instantiations
+(registers, spills, warnings), then, at each call of the dtype's calls
+(bfloat16: ``CALLS``, the LM prefills' (BH, S, d, dv, window); float32:
+``F32_CALLS``, the smoke, classifier and favg calls), holds both against
+``attention_plain`` (a few heads at a time; bfloat16 within 2 * 2**-6
+and ``bf16_excess`` <= 1, float32 within 2e-5) and times them: device
+time per launch (CUDA graphs of launches, median over replays, CUDA
+events), in turns: other, this, SDPA, SDPA, this, other, three times.
+Prints the medians, this / other, this / SDPA and the bound: the larger
+of the bytes over 3.35 TB/s and the operations over the peak (bfloat16:
+989 TFLOP/s; float32: 67 TFLOP/s on the CUDA cores and, beside it, three
+products at 495 TFLOP/s, the 3xTF32 bound).  ``CHECKS`` and
+``F32_CHECKS`` (off the tiles, with windows) are only held to the plain
+version.  Needs a CUDA GPU.
 """
 from __future__ import annotations
 
@@ -52,6 +56,20 @@ CHECKS = ((4, 1084, 128, 128, None), (4, 1084, 192, 128, None),
           (1, 1084, 128, 128, 300), (1, 128, 128, 128, None),
           (3, 384, 128, 128, None), (3, 512, 192, 128, 200))
 ATOL = 2 * 2.0 ** -6
+# float32: name -> (BH, S, d, dv, window)
+F32_CALLS = {
+    "deepseek-v2 width192": (8, 40, 192, 128, None),
+    "deepseek-v2 smoke": (8, 40, 48, 32, None),
+    "classifier": (400, 16, 16, 16, None),
+    "zamba2 smoke favg": (8, 64, 32, 32, None),
+    "favg 25m": (32, 128, 64, 64, None),
+    "favg 100m": (48, 128, 64, 64, None),
+    "favg 25m seq 1024": (32, 1024, 64, 64, None),
+}
+F32_CHECKS = ((4, 300, 128, 128, 7), (8, 160, 192, 128, None),
+              (3, 333, 80, 80, 100), (2, 1, 32, 32, None),
+              (8, 300, 120, 120, None), (3, 200, 16, 128, 50))
+F32_ATOL = 2e-5
 
 
 def build(checkout: Path, name: str):
@@ -75,38 +93,42 @@ def build(checkout: Path, name: str):
     return fn, res.stdout + res.stderr
 
 
-def ptxas_report(log: str, label: str) -> None:
-    """The tensor-core kernels' registers and spills, and every warning."""
+def ptxas_report(log: str, label: str, f32: bool) -> None:
+    """The dtype's kernels' registers and spills, and every warning."""
     entry = None
+    pattern = (r"flash_fwd_(?:f32|kernel)I?\w*?Li(\d+)ELi(\d+)E" if f32
+               else r"flash_fwd_tcILi(\d+)ELi(\d+)E")
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "warning" in line:
             print(f"ptxas {label}: {line.strip()}")
-        elif entry and "flash_fwd_tc" in entry and (
-                "registers" in line or "spill" in line):
-            m = re.search(r"flash_fwd_tcILi(\d+)ELi(\d+)E", entry)
-            print(f"ptxas {label} flash_fwd_tc<{m[1]}, {m[2]}>: "
-                  f"{line.strip()}")
+        elif entry and ("registers" in line or "spill" in line):
+            m = re.search(pattern, entry)
+            if m:
+                kernel = re.search(r"flash_fwd_[a-z0-9]+", entry)[0]
+                print(f"ptxas {label} {kernel}<{m[1]}, {m[2]}>: "
+                      f"{line.strip()}")
 
 
 def launcher(fn, q, k, v, out, window):
     bh, s, d = q.shape
+    dtype = 0 if q.dtype == torch.float32 else 1
 
     def call():
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 bh, s, d, v.shape[-1], window or -1, 1,
+                 bh, s, d, v.shape[-1], window or -1, dtype,
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"flash_attention_launch: CUDA error {err}")
     return call
 
 
-def inputs(gen, bh, s, d, dv):
-    q, k = (torch.randn(bh, s, d, generator=gen, device="cuda").bfloat16()
+def inputs(gen, bh, s, d, dv, dtype=torch.bfloat16):
+    q, k = (torch.randn(bh, s, d, generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     return q, k, torch.randn(bh, s, dv, generator=gen,
-                             device="cuda").bfloat16()
+                             device="cuda").to(dtype)
 
 
 def hold(libs, q, k, v, window, label):
@@ -114,6 +136,7 @@ def hold(libs, q, k, v, window, label):
     from chip_smoke import plain_by_heads
     from repro_torch.kernels.flash_attention import bf16_excess
 
+    f32 = q.dtype == torch.float32
     want = plain_by_heads(q, k, v, window)
     calls = {}
     for name, fn in libs.items():
@@ -123,10 +146,10 @@ def hold(libs, q, k, v, window, label):
         calls[name]()
         torch.cuda.synchronize()
         err = float((out.float() - want.float()).abs().max())
-        x = bf16_excess(out, want)
-        print(f"{label} {name}: max |err| {err:.3g}, {x:.3f} of the "
-              f"per-element bound")
-        if err > ATOL or x > 1:
+        x = 0.0 if f32 else bf16_excess(out, want)
+        print(f"{label} {name}: max |err| {err:.3g}"
+              + ("" if f32 else f", {x:.3f} of the per-element bound"))
+        if err > (F32_ATOL if f32 else ATOL) or x > 1:
             raise RuntimeError(f"{label} {name}: err {err}, excess {x}")
     return calls
 
@@ -134,30 +157,35 @@ def hold(libs, q, k, v, window, label):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other")
-    ap.add_argument("--calls", nargs="*", default=list(CALLS))
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    ap.add_argument("--calls", nargs="*")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
     import torch.nn.functional as F
 
-    from chip_smoke import (BF16_OPS_PER_S, attended_pairs, bound_ms,
-                            device_ms, nvidia_smi)
+    from chip_smoke import (BF16_OPS_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S,
+                            attended_pairs, bound_ms, device_ms, nvidia_smi)
 
+    f32 = args.dtype == "float32"
+    dtype = torch.float32 if f32 else torch.bfloat16
+    table, checks = (F32_CALLS, F32_CHECKS) if f32 else (CALLS, CHECKS)
     (other, log_other), (this, log) = (
         build(Path(args.other).resolve(), "other"), build(THIS, "this"))
-    ptxas_report(log_other, "other")
-    ptxas_report(log, "this")
+    ptxas_report(log_other, "other", f32)
+    ptxas_report(log, "this", f32)
     libs = {"other": other, "this": this}
     print(nvidia_smi())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for bh, s, d, dv, window in CHECKS:
-        hold(libs, *inputs(gen, bh, s, d, dv), window,
-             f"check {(bh, s, d, dv)} window {window}")
+    for bh, s, d, dv, window in checks:
+        hold(libs, *inputs(gen, bh, s, d, dv, dtype), window,
+             f"check {(bh, s, d, dv)} {args.dtype} window {window}")
     rows = []
-    for name in args.calls:
-        bh, s, d, dv, window = CALLS[name]
-        q, k, v = inputs(gen, bh, s, d, dv)
+    for name in args.calls or list(table):
+        bh, s, d, dv, window = table[name]
+        q, k, v = inputs(gen, bh, s, d, dv, dtype)
         calls = hold(libs, q, k, v, window, f"{name} {(bh, s, d, dv)}")
         if window is None:
             def lib():
@@ -179,21 +207,26 @@ def main() -> int:
                                         else calls[who], *reps))
         med = {w: statistics.median(x) for w, x in t.items()}
         pairs = attended_pairs(bh, s, window)
-        bound, by = bound_ms(2 * bh * s * (d + dv) * 2,
-                             2 * pairs * (d + dv), BF16_OPS_PER_S)
+        nbytes = 2 * bh * s * (d + dv) * q.element_size()
+        ops = 2 * pairs * (d + dv)
+        bounds = ([bound_ms(nbytes, ops, F32_OPS_PER_S),
+                   bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)] if f32
+                  else [bound_ms(nbytes, ops, BF16_OPS_PER_S)])
         print(f"{name} {(bh, s, d, dv)} window {window}: other "
               f"{[round(x, 6) for x in t['other']]}, this "
               f"{[round(x, 6) for x in t['this']]}, sdpa "
               f"{[round(x, 6) for x in t['sdpa']]} ms")
-        rows.append((name, (bh, s, d, dv, window), med, bound, by))
+        rows.append((name, (bh, s, d, dv, window), med, bounds))
         del q, k, v, calls
     print("call | other ms | this ms | this/other | SDPA ms | this/SDPA | "
-          "bound ms | share of bound")
-    for name, shape, med, bound, by in rows:
+          "bound ms (by) and share of it"
+          + (": float32 CUDA cores; 3xTF32" if f32 else ""))
+    for name, shape, med, bounds in rows:
+        shares = "; ".join(f"{b:.6f} ({by}) {b / med['this']:.3f}"
+                           for b, by in bounds)
         print(f"{name} {shape} | {med['other']:.6f} | {med['this']:.6f} | "
               f"{med['this'] / med['other']:.3f} | {med['sdpa']:.6f} | "
-              f"{med['this'] / med['sdpa']:.3f} | {bound:.6f} ({by}) | "
-              f"{bound / med['this']:.3f}")
+              f"{med['this'] / med['sdpa']:.3f} | {shares}")
     return 0
 
 
