@@ -78,6 +78,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(bh)
       : "memory");
 }
+// A bulk copy of `bytes` contiguous bytes (a multiple of 16, both ends
+// 16-byte aligned) to shared memory, completing on bar's transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
                                           const void* src, int col, int row,
                                           int bh) {

@@ -11,24 +11,24 @@
 // with seg the inclusive cumsum of dA within the chunk and x = x * dt.
 //
 // Replaces the Pallas kernel _ssd_kernel of src/repro/kernels/ssd_scan.py
-// (launched by ssd_scan_pallas, line 66), whose grid walks (bh, chunk) in
-// order on one core and carries the (N, P) state in VMEM scratch from one
-// chunk to the next.  B and C are read through a head-to-group index (row
+// (launched by ssd_scan_pallas, its pl.pallas_call at line 77), whose grid
+// walks (bh, chunk) in order on one core and carries the (N, P) state in
+// VMEM scratch from one chunk to the next.  B and C are read through a head-to-group index (row
 // bh reads row bh / heads_per_group), never repeated to every head.
 // Optionally the state starts from `init` and the state after the last
 // chunk is written to `final_state` (null: zeros / not written).
 //
-// Bound on the H100 at the serve path's (BH 128, S 1024, P 64, N 128,
-// chunk 256, 32 heads per group): 10.76 GFLOP in the causal half, done as
-// three TF32 products each (below): 32.3 GFLOP at 495 TFLOP/s = 0.065 ms;
-// 76 MB of traffic (x and y 33.5 MB each, B and C 2.1 MB each, dA, the
-// final state) at 3.35 TB/s = 0.023 ms.  So operations bound it.  The
-// CUDA-core kernel this replaces was bound at 0.161 ms (float32 FMA at
-// 67 TFLOP/s) and took 0.726.
-// At zamba2-2.7b's prefill (BH 320, S 1024, P 64, N 64, chunk 256, 80
-// heads a group): 16.1 GFLOP, 48.4 as 3xTF32, 0.098 ms; 176 MB, 0.053
-// ms.  A third of those operations is C . B^T, which every head of a
-// group recomputes.
+// Bounds on the H100 (3xTF32 products at 495 TFLOP/s, 3.35 TB/s), with
+// C . B^T counted once a B/C group, as chip_smoke.py's ssd_flops does:
+//   mamba2-370m's prefill (BH 128, S 1024, P 64, N 128, chunk 256, 32
+//   heads a group): 6.59 GFLOP, 19.8 as 3xTF32: 0.0399 ms; 76 MB: 0.0227
+//   ms.  zamba2-2.7b's (BH 320, S 1024, P 64, N 64, chunk 256, 80 heads a
+//   group): 10.8 GFLOP, 32.5 as 3xTF32: 0.0656 ms; 176 MB: 0.0527 ms.
+//   So operations bound both.  Measured on an NVIDIA H100 80GB HBM3 at
+//   700 W (tools/ssd_ab.py): 0.141 ms at mamba2's call and 0.239 ms at
+//   zamba2's, 28% and 27% of those bounds; chunk_scan's consumers spend a
+//   third of their cycles on each query tile's own work (C . S_prev, the
+//   pair's cumsum, y: tools/ssd_phases.py).
 //
 // What the design does about it:
 //
@@ -38,44 +38,70 @@
 //   tensor core reads truncated to TF32, and small = a - trunc(a), which
 //   is exact in float32; big.big + big.small + small.big go into the
 //   same float32 accumulators (wgmma m64nNk8 .tf32, A from registers).
-// * Parallel chunks.  Three launches on the caller's stream:
-//   (a) chunk_states, one CTA per (row, chunk): the chunk's own end state
-//       E_c = (B o exp(seg_last - seg))^T x, written with exp(seg_last)
-//       to a scratch the wrapper allocates, (BH, S / L, P, N) + (BH, S / L);
+// * Four launches on the caller's stream:
+//   (0) chunk_scores, one CTA per (B/C group, chunk, causal 64 x 64 tile):
+//       G = C . B^T into a scratch, each thread's 32 floats in the order
+//       of the P . x product's A fragments, thread-contiguous.  B and C
+//       are per group, so this is computed once for the group's heads:
+//       at zamba2's 80 heads a group that is 20.1 GFLOP of 3xTF32 a
+//       per-head kernel recomputes, at mamba2's 32 heads 16.1.  The 10
+//       causal tiles of every (group row, chunk) at chunk 256 take 2.5
+//       MiB at both serve shapes and stay in L2 for chunk_scan.  The
+//       k-steps run in the per-head order, so a call with heads_per_group
+//       h gives, bit for bit, the y and state of the call with B and C
+//       repeated to every head and heads_per_group 1.  At heads_per_group
+//       1 (the reference's shapes) the tiles are per row, 2.5x x's bytes:
+//       those calls are small;
+//   (a) chunk_states, one CTA per (row, chunk, 64 state rows): the chunk's
+//       own end state E_c = (B o exp(seg_last - seg))^T x, written with
+//       exp(seg_last) to the scratch, (BH, S / L, P, N) + (BH, S / L).  One
+//       stage of B and x and one x^T buffer (x^T is its B operand: TF32
+//       wgmma reads shared memory K-major only), the stage released once
+//       read, so that the next tile's loads overlap this tile's products:
+//       68 KB, three CTAs an SM.  At N 128 the state's two halves are two
+//       CTAs side by side, which read x once from device memory and once
+//       from L2.  Its loads hold it (taking its products or its transpose
+//       out saves 11-14% each);
 //   (b) state_pass, per row and 32 x 32 state elements: S_c = exp(seg_last)
 //       S_{c-1} + E_c, leaving in the scratch the state that enters each
-//       chunk and writing final_state (a few steps per row: negligible);
-//   (c) chunk_scan, one CTA per (row, chunk, 128-query tile), heaviest
-//       tiles first, two warpgroups of 64 query rows: y = exp(seg)
-//       (C . S_prev) + sum over the 64-key tiles at or below the diagonal
-//       of (C . B^T o decay) . x, masked before the exp (above the
-//       diagonal the exponent is positive).
-//   At the serve shape that is 512 (row, chunk) units and 1024 query
-//   tiles where the CUDA-core kernel had 128 rows.
-// * Layouts.  TF32 wgmma reads its shared-memory operand K-major only.
-//   C and B lie K-major (state contiguous) and are loaded as they are;
-//   the state pass writes S_prev transposed, (P, N); x is loaded as it
-//   lies, (keys, P), and transposed in shared memory into x^T (P, keys)
-//   while its small part is split off.  The A operands (C, the decayed
-//   scores P, (B o w)^T) sit in registers.  A TF32 A fragment holds
-//   columns t and t + 4 of each 8, the score accumulator columns 2t and
-//   2t + 1, so x^T stores the keys of each group of 8 in the order
-//   0 2 4 6 1 3 5 7 and P goes from accumulator to A fragment in place.
-// * Loads by TMA (128-byte swizzle, rows past S zero-filled, columns past
-//   P or N zero-filled) into a ring of two B/x stages signalled by
-//   mbarriers; C and S_prev once per CTA.  Thread 0 issues them: the
-//   first two stages at the start, each later one as soon as every warp
-//   is past the tile that held its stage (a barrier the CTA passes
-//   anyway).  A separate producer warp would make the CTA 288 threads,
-//   which ptxas caps at 168 registers a thread, and at that cap it
-//   serialises the wgmma (C7511).
-// * Overlap: the splitting and transposing of key tile i + 1 runs on the
-//   CUDA cores while tile i's products run on the tensor cores (x^T
-//   during C . B^T, B small during P . x), into a second x^T buffer.
-//   Shared memory per CTA of chunk_scan at P 64, N 128: C 64 KB (held in
-//   registers once read; the odd tiles' x^T then takes its place), S_prev
-//   big and small 64 KB (then B small and the even tiles' x^T), the ring
-//   2 x 48 KB: 226 KB of the 227.
+//       chunk and writing final_state (a few steps a row).  Folded into
+//       chunk_states' last CTA of each row it saved 3% at zamba2's shape
+//       and cost 7% at mamba2's (the row's tail runs after its chunks);
+//   (c) chunk_scan: y of every (row, chunk) and query tile of 128 rows.
+// * chunk_scan is persistent: one CTA an SM walks the (row, chunk) pairs,
+//   each pair's query tiles heaviest first (the pair's key tiles then
+//   come from L2 for its lighter tile).  Three warpgroups, 384 threads,
+//   the register file split with setmaxnreg as flash_attention.cu's bf16
+//   kernel does: two consumers of 64 query rows each and a producer: its
+//   thread 0 keeps the TMA loads in flight (S_prev once a pair, 128-byte
+//   swizzle; x tiles; the G tiles by bulk copy), its other three warps
+//   split S_prev and transpose and split each x tile into x^T (the P . x
+//   product's B operand, the keys of each 8 in the order 0 2 4 6 1 3 5 7
+//   so that P goes from its G fragment to an A fragment in place).
+//   mbarriers hand every buffer on: rings of two x stages, two to four G
+//   stages (as shared memory allows) and two x^T buffers, each with a
+//   full and an empty barrier; S_prev has its own region, so the next
+//   pair's S_prev loads while this pair's last tiles run.  At (64, 128):
+//   S_prev 64 KB, x^T 64 KB, x 32 KB, G 64 KB.  A consumer releases a G
+//   stage only after the values it loaded from it are used: an arrive
+//   right after the loads let the refill overwrite the stage before the
+//   slower warpgroup's loads had read it.
+// * A consumer: for each query tile, acc = exp(seg) (C . S_prev), C's A
+//   fragments read from device memory (L2: C is per group), in parts of
+//   32 state columns; then for each key tile at or below its rows: the G
+//   tile's fragments from shared memory, masked before the exp (above the
+//   diagonal the exponent is positive) and decayed, split, and acc += P .
+//   x^T.  The next key tile's P is prepared while this one's product runs
+//   (two register sets); the tile above warpgroup 0's rows is released
+//   unread.
+// * Registers: setmaxnreg gives the consumers 240 a thread and the
+//   producer 24 (of 168 at launch, 65,536 / 384).  ptxas serialises every
+//   wgmma of a kernel whose consumers it cannot fit (C7512, one wait a
+//   wgmma): at 224 or 232 it did, and so it does when C's A fragments are
+//   loaded whole or ahead of the key tiles (64 registers more).  The
+//   producer's splitting warps spill a few registers at 24.  After the
+//   setmaxnreg.inc a wait that times out traps through an out-of-line
+//   call (hopper.cuh's bar_wait<true>).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -89,7 +115,7 @@ using namespace hopper;
 
 constexpr int T = 64;          // rows of a query tile, keys of a key tile
 constexpr int MAX_CHUNK = 256;
-constexpr int STAGES = 2;      // depth of the B/x ring
+constexpr int G_TILE = T * T * 4;  // bytes of one 64 x 64 score tile
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr float LOG2E = 1.4426950408889634f;
@@ -99,9 +125,31 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// causal 64 x 64 tiles of a chunk of n_qt query tiles: (qi, ki), ki <= qi,
+// at index qi (qi + 1) / 2 + ki
+__host__ __device__ constexpr int causal_tiles(int n_qt) {
+  return n_qt * (n_qt + 1) / 2;
+}
+
 template <int NC>
 __device__ __forceinline__ void consumer_sync() {  // the consumers only
   asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
+}
+
+// A wait without the timeout, for the producer warpgroup's few
+// registers.  It cannot wait forever on its own: a consumer whose wait
+// times out traps the grid.
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
 }
 
 // seg[i] = scale (a[0] + ... + a[i]) for i < chunk, by the NC consumer
@@ -135,59 +183,137 @@ __device__ void chunk_cumsum(const float* a, int chunk, float scale,
 }
 
 // ---------------------------------------------------------------------------
-// (a) chunk_states: E_c = (B o w)^T x per (row, chunk), w = exp(seg_last -
-// seg); NWG warpgroups of 64 state rows each.
+// (0) chunk_scores: G = C . B^T for one (group, chunk, causal tile), one
+// warpgroup, in 3xTF32 with the k-steps in the per-head kernel's order.
+// ---------------------------------------------------------------------------
+
+template <int NP>
+struct LayoutG {
+  static constexpr int TILE_BYTES = T * NP * 4;  // 64 rows of C or of B
+  static constexpr int BS_OFF = 2 * TILE_BYTES;  // B's small part
+  static constexpr int BAR_OFF = 3 * TILE_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 + 1024;
+};
+
+template <int NP>
+__global__ void __launch_bounds__(128)
+    chunk_scores(const __grid_constant__ CUtensorMap tC,
+                 const __grid_constant__ CUtensorMap tB,
+                 float* __restrict__ scores, int chunk) {
+  using L = LayoutG<NP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  const int tid = threadIdx.x, tile = blockIdx.x;
+  const int c = blockIdx.y, grp = blockIdx.z, c0 = c * chunk;
+  int qi = 0;
+  while (causal_tiles(qi + 1) <= tile) ++qi;
+  const int ki = tile - causal_tiles(qi);
+  if (tid == 0) {
+    bar_init(full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bar_expect_tx(full, 2 * L::TILE_BYTES);
+    for (int j = 0; j < NP / 32; ++j) {
+      tma_load(smem + j * T * 128, &tC, full, 32 * j, c0 + T * qi, grp);
+      tma_load(smem + L::TILE_BYTES + j * T * 128, &tB, full, 32 * j,
+               c0 + T * ki, grp);
+    }
+  }
+  __syncthreads();
+  bar_wait(full, 0);
+  const float4* b_big = reinterpret_cast<const float4*>(smem + L::TILE_BYTES);
+  float4* b_small = reinterpret_cast<float4*>(smem + L::BS_OFF);
+  for (int j = tid; j < L::TILE_BYTES / 16; j += 128)
+    b_small[j] = tf32_rest(b_big[j]);
+  fence_async();
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (tid >> 5) + g;
+  float cf[NP / 8][4], cl[NP / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < NP / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      cf[kk][i] = *reinterpret_cast<const float*>(
+          smem + swz(r0 + 8 * (i & 1), 8 * kk + t + 4 * (i >> 1), T));
+  split(cf, cl);
+  __syncthreads();  // B's small part is written
+  float sc[T / 2];
+#pragma unroll
+  for (int j = 0; j < T / 2; ++j) sc[j] = 0.f;
+  const uint32_t bb = smem_u32(smem + L::TILE_BYTES);
+  const uint32_t bs = smem_u32(smem + L::BS_OFF);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < NP / 8; ++kk)
+    mma3(sc, cf[kk], cl[kk], kdesc(bb, kk, T), kdesc(bs, kk, T));
+  wg_commit();
+  wg_wait_all();
+  pin(sc);
+  pin(cf);
+  pin(cl);
+  // rows r0, r0 + 8; keys 8j + 2t + cc: as P's A fragment of k-step j,
+  // (r0, 2t), (r0 + 8, 2t), (r0, 2t + 1), (r0 + 8, 2t + 1)
+  float4* out = reinterpret_cast<float4*>(scores) +
+                ((size_t)(grp * gridDim.y + c) * gridDim.x + tile) *
+                    (T * T / 4);
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j)
+    out[j * 128 + tid] =
+        make_float4(sc[4 * j], sc[4 * j + 2], sc[4 * j + 1], sc[4 * j + 3]);
+}
+
+// ---------------------------------------------------------------------------
+// (a) chunk_states: E_c = (B o w)^T x per (row, chunk, 64 state rows),
+// w = exp(seg_last - seg); one warpgroup.
 // ---------------------------------------------------------------------------
 
 template <int PP, int NP>
 struct LayoutA {
-  static constexpr int NWG = NP > 64 ? NP / 64 : 1;
-  static constexpr int NC = 128 * NWG;
-  static constexpr int B_BYTES = T * NP * 4, X_BYTES = T * PP * 4;
+  static constexpr int NH = NP < 64 ? NP : 64;  // state rows of a CTA
+  static constexpr int B_BYTES = T * NH * 4, X_BYTES = T * PP * 4;
   static constexpr int XT_BYTES = PP * T * 4;
-  static constexpr int STAGE = B_BYTES + X_BYTES;
-  // x^T of even and of odd key tiles, each big then small
-  static constexpr int XT_OFF = STAGES * STAGE;
-  static constexpr int SEG_OFF = XT_OFF + 4 * XT_BYTES;  // seg, w, sums
+  static constexpr int STAGE = B_BYTES + X_BYTES;  // B, then x
+  static constexpr int XT_OFF = STAGE;             // x^T big, then small
+  static constexpr int SEG_OFF = XT_OFF + 2 * XT_BYTES;  // seg, w, sums
   static constexpr int BAR_OFF = SEG_OFF + (2 * MAX_CHUNK + 8) * 4;
-  static constexpr int SMEM = BAR_OFF + 8 * STAGES + 1024;
+  static constexpr int SMEM = BAR_OFF + 8 + 1024;
 };
 
 template <int PP, int NP>
-__global__ void __launch_bounds__(LayoutA<PP, NP>::NC, 1)
+__global__ void __launch_bounds__(128, 3)
     chunk_states(const __grid_constant__ CUtensorMap tB,
                  const __grid_constant__ CUtensorMap tX,
                  const float* __restrict__ dA, float* __restrict__ states,
                  float* __restrict__ decay, int s, int chunk, int nc, int n,
                  int p, int heads_per_group) {
   using L = LayoutA<PP, NP>;
-  constexpr int NC = L::NC;
+  constexpr int NC = 128, NH = L::NH;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   float* seg = reinterpret_cast<float*>(smem + L::SEG_OFF);
   float* wl = seg + MAX_CHUNK;
   float* warp_sum = wl + MAX_CHUNK;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  const int tid = threadIdx.x;
-  const int c = blockIdx.x, row = blockIdx.y, c0 = c * chunk;
+  uint8_t* xt = smem + L::XT_OFF;
+  const int tid = threadIdx.x, half = blockIdx.x;
+  const int c = blockIdx.y, row = blockIdx.z, c0 = c * chunk;
   const int grp = row / heads_per_group;
   const int n_kt = (chunk + T - 1) / T;
-  const auto stage_of = [&](int i) { return smem + (i % STAGES) * L::STAGE; };
-  // thread 0 issues every load: B and x of key tile i into its stage
+  // thread 0 issues every load: this CTA's state columns of B and x, key
+  // tile i
   const auto load_tile = [&](int i) {
-    uint64_t* bar = full + i % STAGES;
-    bar_expect_tx(bar, L::STAGE);
-    for (int j = 0; j < NP / 32; ++j)
-      tma_load(stage_of(i) + j * T * 128, &tB, bar, 32 * j, c0 + T * i, grp);
+    bar_expect_tx(full, L::STAGE);
+    for (int j = 0; j < NH / 32; ++j)
+      tma_load(smem + j * T * 128, &tB, full, NH * half + 32 * j,
+               c0 + T * i, grp);
     for (int j = 0; j < PP / 32; ++j)
-      tma_load(stage_of(i) + L::B_BYTES + j * T * 128, &tX, bar, 32 * j,
+      tma_load(smem + L::B_BYTES + j * T * 128, &tX, full, 32 * j,
                c0 + T * i, row);
   };
-
   if (tid == 0) {
-    for (int i = 0; i < STAGES; ++i) bar_init(full + i, 1);
+    bar_init(full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int i = 0; i < STAGES && i < n_kt; ++i) load_tile(i);
+    load_tile(0);
   }
   __syncthreads();
 
@@ -196,30 +322,18 @@ __global__ void __launch_bounds__(LayoutA<PP, NP>::NC, 1)
   const float seg_last = seg[chunk - 1];
   for (int i = tid; i < n_kt * T; i += NC)
     wl[i] = i < chunk ? expf(seg_last - seg[i]) : 0.f;
-  if (tid == 0) decay[(size_t)row * nc + c] = expf(seg_last);
+  if (tid == 0 && half == 0) decay[(size_t)row * nc + c] = expf(seg_last);
   consumer_sync<NC>();
 
   const int lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int n0 = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + g;  // state row
+  const int n0 = 16 * (tid >> 5) + g;  // state rows n0, n0 + 8 of the CTA's
   float acc[PP / 2];
 #pragma unroll
   for (int i = 0; i < PP / 2; ++i) acc[i] = 0.f;
-
-  // tile i's x^T at xt_of(i); tile i + 1 is transposed while tile i's
-  // products run
-  const auto xt_of = [&](int i) {
-    return smem + L::XT_OFF + (i & 1) * 2 * L::XT_BYTES;
-  };
-  const auto split_x = [&](int i) {
-    transpose_split<PP, T, NC>(stage_of(i) + L::B_BYTES, xt_of(i),
-                        xt_of(i) + L::XT_BYTES, tid);
-  };
-  bar_wait(full, 0);
-  split_x(0);
-  fence_async();
-  consumer_sync<NC>();
+  const uint32_t xt_addr = smem_u32(xt);
   for (int i = 0; i < n_kt; ++i) {
-    const uint8_t* stage = stage_of(i);
+    bar_wait(full, i & 1);
+    transpose_split<PP, T, NC>(smem + L::B_BYTES, xt, xt + L::XT_BYTES, tid);
     // A = (B o w)^T: state rows n0, n0 + 8; keys 8j + 2t, 8j + 2t + 1 (the
     // x^T order)
     float a[8][4];
@@ -233,30 +347,30 @@ __global__ void __launch_bounds__(LayoutA<PP, NP>::NC, 1)
         for (int h = 0; h < 2; ++h) {
           const int nn = n0 + 8 * h;
           a[j][2 * cc + h] =
-              nn < NP ? *reinterpret_cast<const float*>(stage +
+              nn < NH ? *reinterpret_cast<const float*>(smem +
                                                         swz(key, nn, T)) * w
                       : 0.f;
         }
       }
     float al[8][4];
     split(a, al);
-    const uint32_t xt = smem_u32(xt_of(i));
+    fence_async();
+    __syncthreads();  // the stage is read and x^T written: load tile i + 1
+    if (tid == 0 && i + 1 < n_kt) load_tile(i + 1);
+    pin(acc);
+    pin(a);
+    pin(al);
     wg_fence();
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      mma3(acc, a[j], al[j], kdesc(xt, j, PP), kdesc(xt + L::XT_BYTES, j, PP));
+      mma3(acc, a[j], al[j], kdesc(xt_addr, j, PP),
+           kdesc(xt_addr + L::XT_BYTES, j, PP));
     wg_commit();
-    if (i + 1 < n_kt) {
-      bar_wait(full + (i + 1) % STAGES, ((i + 1) / STAGES) & 1);
-      split_x(i + 1);
-      fence_async();
-    }
     wg_wait_all();
     pin(acc);
     pin(a);
     pin(al);
-    consumer_sync<NC>();  // tile i is consumed by every warp
-    if (tid == 0 && i + STAGES < n_kt) load_tile(i + STAGES);
+    __syncthreads();  // x^T is consumed
   }
 
   // E_c into the scratch, (P, N) layout: element (n, p) of the fragment
@@ -267,8 +381,9 @@ __global__ void __launch_bounds__(LayoutA<PP, NP>::NC, 1)
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int cc = 0; cc < 2; ++cc) {
-        const int nn = n0 + 8 * h, pp = 8 * j + 2 * t + cc;
-        if (nn < n && pp < p) out[pp * n + nn] = acc[4 * j + 2 * h + cc];
+        const int nl = n0 + 8 * h, nn = NH * half + nl, pp = 8 * j + 2 * t + cc;
+        if (nl < NH && nn < n && pp < p)
+          out[pp * n + nn] = acc[4 * j + 2 * h + cc];
       }
 }
 
@@ -335,251 +450,393 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// (c) chunk_scan: y for one (row, chunk, 128-query tile); two consumer
-// warpgroups of 64 query rows, which share the splitting of every B and
-// x tile.
+// (c) chunk_scan: y, persistent; two consumer warpgroups of 64 query rows
+// and a producer warpgroup (a loading thread and three splitting warps).
 // ---------------------------------------------------------------------------
 
-constexpr int QT = 2 * T;  // query rows per CTA
+constexpr int QT = 2 * T;  // query rows of a query tile (both consumers)
+constexpr int SCAN_THREADS = 384;
+constexpr int SPLITTERS = 96;  // the producer warpgroup's warps 1-3
+// setmaxnreg's split of the CTA's registers: the 168 a thread that
+// __launch_bounds__(SCAN_THREADS, 1) gives at launch; an increase takes
+// only what a decrease gave
+constexpr int ENTRY_REGS = 65536 / SCAN_THREADS / 8 * 8;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <=
+                  ENTRY_REGS * SCAN_THREADS,
+              "the register split exceeds the CTA's registers");
+constexpr int SMEM_MAX = 232448;  // a CTA's shared memory on the H100
 
 template <int PP, int NP>
 struct LayoutC {
-  static constexpr int C_BYTES = QT * NP * 4, S_BYTES = PP * NP * 4;
-  static constexpr int B_BYTES = T * NP * 4, X_BYTES = T * PP * 4;
-  static constexpr int XT_BYTES = PP * T * 4;
-  // region 0: C, then (C in registers) the x^T of the odd key tiles
-  static constexpr int R0_BYTES =
-      C_BYTES > 2 * XT_BYTES ? C_BYTES : 2 * XT_BYTES;
-  // u: S_prev big and small, then B small and the even tiles' x^T
-  static constexpr int U_BYTES = 2 * S_BYTES > B_BYTES + 2 * XT_BYTES
-                                     ? 2 * S_BYTES
-                                     : B_BYTES + 2 * XT_BYTES;
-  static constexpr int U_OFF = R0_BYTES;
-  static constexpr int STAGE = B_BYTES + X_BYTES;
-  static constexpr int RING_OFF = U_OFF + U_BYTES;
-  static constexpr int SEG_OFF = RING_OFF + STAGES * STAGE;
+  static constexpr int S_BYTES = PP * NP * 4;
+  static constexpr int X_BYTES = T * PP * 4, XT_BYTES = PP * T * 4;
+  static constexpr int XS = 2;  // x stages
+  // S_prev big and small, two x^T buffers (big, small), the x ring, then
+  // the G ring: as many stages (each both consumers' tiles) as fit, <= 4
+  static constexpr int XT_OFF = 2 * S_BYTES;
+  static constexpr int X_OFF = XT_OFF + 4 * XT_BYTES;
+  static constexpr int G_OFF = X_OFF + XS * X_BYTES;
+  static constexpr int TAIL = (MAX_CHUNK + 8) * 4 + 256 + 1024;
+  static constexpr int GS_FIT = (SMEM_MAX - G_OFF - TAIL) / (2 * G_TILE);
+  static constexpr int GS = GS_FIT > 4 ? 4 : GS_FIT;
+  static_assert(GS >= 2, "no room for two G stages");
+  static constexpr int SEG_OFF = G_OFF + GS * 2 * G_TILE;
   static constexpr int BAR_OFF = SEG_OFF + (MAX_CHUNK + 8) * 4;
-  // barriers: c_full, s_full, full[STAGES]
-  static constexpr int SMEM = BAR_OFF + 8 * (2 + STAGES) + 1024;
+  // mbarriers
+  static constexpr int S_FULL = 0, S_READY = 1, S_EMPTY = 2, X_FULL = 3;
+  static constexpr int X_EMPTY = X_FULL + XS, G_FULL = X_EMPTY + XS;
+  static constexpr int G_EMPTY = G_FULL + GS, XT_FULL = G_EMPTY + GS;
+  static constexpr int XT_EMPTY = XT_FULL + 2, N_BARS = XT_EMPTY + 2;
+  static_assert(8 * N_BARS <= 256, "barriers");
+  static constexpr int SMEM = BAR_OFF + 256 + 1024;
 };
 
+template <int B>
+struct Buf {
+  static constexpr int value = B;
+};
+
+// The loading thread: per (row, chunk) pair S_prev (unless it is zero),
+// then per query tile, heaviest first, and key tile the x tile and the
+// consumers' G tiles (a consumer's only if the key tile reaches its rows),
+// each into its ring stage once the stage's last tile is released.  A wait
+// on an empty barrier's first phase (parity 1) passes.
 template <int PP, int NP>
-__global__ void __launch_bounds__(256, 1)
-    chunk_scan(const __grid_constant__ CUtensorMap tC,
-               const __grid_constant__ CUtensorMap tB,
-               const __grid_constant__ CUtensorMap tX,
-               const __grid_constant__ CUtensorMap tS,
-               const float* __restrict__ dA, float* __restrict__ y, int s,
-               int chunk, int nc, int p, int heads_per_group,
-               int zero_start) {
+__device__ __forceinline__ void scan_load(uint8_t* smem,
+                                          const CUtensorMap* tX,
+                                          const CUtensorMap* tS,
+                                          const float* scores, int chunk,
+                                          int nc, int hpg, int units,
+                                          int zero_start) {
   using L = LayoutC<PP, NP>;
-  constexpr int NC = 256;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
-  float* seg = reinterpret_cast<float*>(smem + L::SEG_OFF);
-  float* warp_sum = seg + MAX_CHUNK;
-  uint64_t* c_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t* s_full = c_full + 1;
-  uint64_t* full = c_full + 2;
-  const int tid = threadIdx.x;
-  const int c = blockIdx.x, row = blockIdx.y, c0 = c * chunk;
-  const int grp = row / heads_per_group;
-  const int q0 = (int)(gridDim.z - 1 - blockIdx.z) * QT;  // heaviest first
-  const int n_kt = min(q0 / T + 2, (chunk + T - 1) / T);  // key tiles
-  const bool inter = !(zero_start && c == 0);  // S_prev = 0: no C . S_prev
-
-  uint8_t* u = smem + L::U_OFF;
-  const auto stage_of = [&](int i) {
-    return smem + L::RING_OFF + (i % STAGES) * L::STAGE;
-  };
-  // thread 0 issues every load: B and x of key tile i into its stage
-  const auto load_tile = [&](int i) {
-    uint64_t* bar = full + i % STAGES;
-    bar_expect_tx(bar, L::STAGE);
-    for (int j = 0; j < NP / 32; ++j)
-      tma_load(stage_of(i) + j * T * 128, &tB, bar, 32 * j, c0 + T * i, grp);
-    for (int j = 0; j < PP / 32; ++j)
-      tma_load(stage_of(i) + L::B_BYTES + j * T * 128, &tX, bar, 32 * j,
-               c0 + T * i, row);
-  };
-  if (tid == 0) {
-    bar_init(c_full, 1);
-    bar_init(s_full, 1);
-    for (int i = 0; i < STAGES; ++i) bar_init(full + i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    bar_expect_tx(c_full, L::C_BYTES);
-    for (int j = 0; j < NP / 32; ++j)
-      for (int h = 0; h < 2; ++h)
-        tma_load(smem + j * QT * 128 + h * T * 128, &tC, c_full, 32 * j,
-                 c0 + q0 + h * T, grp);
-    if (inter) {
-      bar_expect_tx(s_full, L::S_BYTES);
+  constexpr int XS = L::XS, GS = L::GS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  const int n_qt = (chunk + T - 1) / T, nz = (chunk + QT - 1) / QT;
+  const int nt = causal_tiles(n_qt);
+  uint32_t ks = 0;  // S_prev loads so far
+  int k = 0;        // key tiles so far
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int row = u / nc, c = u % nc, c0 = c * chunk;
+    const float* g_tiles =
+        scores + (size_t)((row / hpg) * nc + c) * nt * (T * T);
+    if (!(zero_start && c == 0)) {
+      wait_phase(bars + L::S_EMPTY, (ks & 1) ^ 1);
+      bar_expect_tx(bars + L::S_FULL, L::S_BYTES);
       for (int j = 0; j < NP / 32; ++j)
-        tma_load(u + j * PP * 128, &tS, s_full, 32 * j, 0, row * nc + c);
+        tma_load(smem + j * PP * 128, tS, bars + L::S_FULL, 32 * j, 0,
+                 row * nc + c);
+      ++ks;
     }
-    for (int i = 0; i < STAGES && i < n_kt; ++i) load_tile(i);
-  }
-  __syncthreads();
-
-  // seg in log2 units: every exponential below is one ex2
-  chunk_cumsum<NC>(dA + (size_t)row * s + c0, chunk, LOG2E, seg, warp_sum,
-                   tid);
-  const int wg = tid >> 7, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 64 * wg + 16 * ((tid >> 5) & 3) + g;  // rows r0, r0 + 8
-  const int l0 = q0 + r0;  // chunk-local query rows l0, l0 + 8
-
-  // C's A fragments, all k-steps of the state, kept for the whole CTA
-  bar_wait(c_full, 0);
-  float cf[NP / 8][4];
-#pragma unroll
-  for (int kk = 0; kk < NP / 8; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      cf[kk][i] = *reinterpret_cast<const float*>(
-          smem + swz(r0 + 8 * (i & 1), 8 * kk + t + 4 * (i >> 1), QT));
-
-  const uint32_t u_addr = smem_u32(u);
-  float acc[PP / 2];
-#pragma unroll
-  for (int i = 0; i < PP / 2; ++i) acc[i] = 0.f;
-
-  // ---- inter: acc = exp(seg_l) C_l . S_prev ----
-  if (inter) {
-    bar_wait(s_full, 0);
-    for (int i = tid; i < L::S_BYTES / 16; i += NC)
-      reinterpret_cast<float4*>(u + L::S_BYTES)[i] =
-          tf32_rest(reinterpret_cast<const float4*>(u)[i]);
-    fence_async();
-    consumer_sync<NC>();
-    float cl[NP / 8][4];
-    split(cf, cl);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < NP / 8; ++kk)
-      mma3(acc, cf[kk], cl[kk], kdesc(u_addr, kk, PP),
-           kdesc(u_addr + L::S_BYTES, kk, PP));
-    wg_commit();
-    wg_wait_all();
-    pin(acc);
-    pin(cf);
-    pin(cl);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int l = l0 + 8 * h;
-      const float e = l < chunk ? exp2_approx(seg[l]) : 0.f;
-#pragma unroll
-      for (int j = 0; j < PP / 8; ++j) {
-        acc[4 * j + 2 * h] *= e;
-        acc[4 * j + 2 * h + 1] *= e;
+    for (int z = nz - 1; z >= 0; --z) {
+      const int q0 = z * QT, n_kt = min(q0 / T + 2, n_qt);
+      for (int i = 0; i < n_kt; ++i, ++k) {
+        const int xs = k % XS, gs = k % GS;
+        wait_phase(bars + L::X_EMPTY + xs, ((k / XS) & 1) ^ 1);
+        bar_expect_tx(bars + L::X_FULL + xs, L::X_BYTES);
+        for (int j = 0; j < PP / 32; ++j)
+          tma_load(smem + L::X_OFF + xs * L::X_BYTES + j * T * 128, tX,
+                   bars + L::X_FULL + xs, 32 * j, c0 + T * i, row);
+        wait_phase(bars + L::G_EMPTY + gs, ((k / GS) & 1) ^ 1);
+        uint32_t bytes = 0;
+        for (int w = 0; w < 2; ++w) {
+          const int qi = q0 / T + w;
+          if (qi < n_qt && i <= qi) bytes += G_TILE;
+        }
+        bar_expect_tx(bars + L::G_FULL + gs, bytes);
+        for (int w = 0; w < 2; ++w) {
+          const int qi = q0 / T + w;
+          if (qi < n_qt && i <= qi)
+            bulk_load(smem + L::G_OFF + (gs * 2 + w) * G_TILE,
+                      g_tiles + (size_t)(causal_tiles(qi) + i) * (T * T),
+                      G_TILE, bars + L::G_FULL + gs);
+        }
       }
     }
   }
-  consumer_sync<NC>();  // C and S_prev are read: regions 0 and u are free
+}
 
-  // ---- intra: the key tiles at or below the diagonal.  The splitting
-  // and transposing of tile i + 1 runs while tile i's products do: x^T
-  // during C . B^T, B small during P . x ----
-  uint8_t* b_small = u;
-  const uint32_t bs_addr = u_addr;
-  const auto xt_of = [&](int i) {  // x^T big, then small
-    return (i & 1) ? smem : u + L::B_BYTES;
-  };
-  const auto split_b = [&](int i) {
-    const float4* big = reinterpret_cast<const float4*>(stage_of(i));
-    for (int j = tid; j < L::B_BYTES / 16; j += NC)
-      reinterpret_cast<float4*>(b_small)[j] = tf32_rest(big[j]);
-  };
-  const auto split_x = [&](int i) {
-    transpose_split<PP, T, NC>(stage_of(i) + L::B_BYTES, xt_of(i),
-                        xt_of(i) + L::XT_BYTES, tid);
-  };
-  bar_wait(full, 0);
-  split_b(0);
-  split_x(0);
-  fence_async();
-  consumer_sync<NC>();
-  for (int i = 0; i < n_kt; ++i) {
-    const int k0 = T * i;
-    const bool next = i + 1 < n_kt;
-    // Both warpgroups take every tile: where a tile lies wholly above a
-    // warpgroup's rows the mask zeroes it.  (Products under a condition
-    // that differs between the warpgroups make ptxas serialise them.)
-    float sc[T / 2];  // scores C . B^T: rows r0, r0 + 8; keys 8j + 2t + cc
-#pragma unroll
-    for (int j = 0; j < T / 2; ++j) sc[j] = 0.f;
-    float cl[NP / 8][4];
-    split(cf, cl);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < NP / 8; ++kk)
-      mma3(sc, cf[kk], cl[kk], kdesc(smem_u32(stage_of(i)), kk, T),
-           kdesc(bs_addr, kk, T));
-    wg_commit();
-    if (next) {
-      bar_wait(full + (i + 1) % STAGES, ((i + 1) / STAGES) & 1);
-      split_x(i + 1);
+// The splitting warps (tid 0..95): per pair S_prev's small part, then
+// every x tile in the loader's order into x^T buffer k % 2, big and small
+// parts.  Each warp signals for itself (the barriers count 3).
+template <int PP, int NP>
+__device__ __forceinline__ void scan_split(uint8_t* smem, int chunk, int nc,
+                                           int units, int zero_start,
+                                           int tid) {
+  using L = LayoutC<PP, NP>;
+  constexpr int XS = L::XS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  const int lane = tid & 31;
+  const int n_qt = (chunk + T - 1) / T, nz = (chunk + QT - 1) / QT;
+  uint32_t ks = 0;
+  int k = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    if (!(zero_start && u % nc == 0)) {
+      wait_phase(bars + L::S_FULL, ks & 1);
+      const float4* big = reinterpret_cast<const float4*>(smem);
+      float4* small = reinterpret_cast<float4*>(smem + L::S_BYTES);
+      for (int j = tid; j < L::S_BYTES / 16; j += SPLITTERS)
+        small[j] = tf32_rest(big[j]);
+      fence_async();
+      __syncwarp();
+      if (lane == 0) bar_arrive(bars + L::S_READY);
+      ++ks;
     }
-    wg_wait_all();
-    pin(sc);
-    pin(cf);
-    pin(cl);
-    consumer_sync<NC>();  // every C . B^T is done: B small is free
-    // B and x of tile i are consumed: its stage takes tile i + STAGES
-    if (tid == 0 && i + STAGES < n_kt) load_tile(i + STAGES);
-
-    // mask, then decay: the exponent is <= 0 wherever it is taken
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int l = l0 + 8 * h;
-      const float sl = seg[l < chunk ? l : chunk - 1];
-#pragma unroll
-      for (int j = 0; j < T / 8; ++j)
-#pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const int m = k0 + 8 * j + 2 * t + cc;
-          float& v = sc[4 * j + 2 * h + cc];
-          v = (m <= l && l < chunk) ? v * exp2_approx(sl - seg[m]) : 0.f;
+    for (int z = nz - 1; z >= 0; --z) {
+      const int n_kt = min(z * QT / T + 2, n_qt);
+      for (int i = 0; i < n_kt; ++i, ++k) {
+        const int xs = k % XS, b = k & 1;
+        wait_phase(bars + L::X_FULL + xs, (k / XS) & 1);
+        if (k >= 2) wait_phase(bars + L::XT_EMPTY + b, ((k - 2) >> 1) & 1);
+        uint8_t* xt = smem + L::XT_OFF + b * 2 * L::XT_BYTES;
+        transpose_split<PP, T, SPLITTERS>(smem + L::X_OFF + xs * L::X_BYTES,
+                                          xt, xt + L::XT_BYTES, tid);
+        fence_async();
+        __syncwarp();
+        if (lane == 0) {
+          bar_arrive(bars + L::X_EMPTY + xs);
+          bar_arrive(bars + L::XT_FULL + b);
         }
+      }
     }
-    // ---- acc += P . x: P's A fragment is the accumulator's own
-    // columns
-    float pa[T / 8][4], pl[T / 8][4];
-#pragma unroll
-    for (int j = 0; j < T / 8; ++j) {
-      pa[j][0] = sc[4 * j];
-      pa[j][1] = sc[4 * j + 2];
-      pa[j][2] = sc[4 * j + 1];
-      pa[j][3] = sc[4 * j + 3];
-    }
-    split(pa, pl);
-    const uint32_t xt = smem_u32(xt_of(i));
-    wg_fence();
-#pragma unroll
-    for (int j = 0; j < T / 8; ++j)
-      mma3(acc, pa[j], pl[j], kdesc(xt, j, PP),
-           kdesc(xt + L::XT_BYTES, j, PP));
-    wg_commit();
-    if (next) split_b(i + 1);
-    fence_async();
-    wg_wait_all();
-    pin(acc);
-    pin(pa);
-    pin(pl);
-    consumer_sync<NC>();  // x^T of tile i is free; tile i + 1 is split
   }
+}
+
+// A consumer warpgroup (ctid 0..255, rows 64 wg ..).  Per pair the seg
+// cumsum (both consumers; the pair's first barrier also keeps the last
+// pair's readers of seg behind), then per query tile the inter product
+// and the key tiles at or below its rows, then y.
+template <int PP, int NP>
+__device__ __forceinline__ void scan_consume(
+    uint8_t* smem, const float* __restrict__ C,
+    const float* __restrict__ dA, float* __restrict__ y, int s, int chunk,
+    int nc, int n, int p, int hpg, int units, int zero_start) {
+  using L = LayoutC<PP, NP>;
+  constexpr int GS = L::GS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  float* seg = reinterpret_cast<float*>(smem + L::SEG_OFF);
+  float* warp_sum = seg + MAX_CHUNK;
+  const int ctid = threadIdx.x, wg = ctid >> 7, lane = ctid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_qt = (chunk + T - 1) / T, nz = (chunk + QT - 1) / QT;
+  const uint32_t s_addr = smem_u32(smem);
+  uint32_t ks = 0;  // S_prev loads so far
+  int k = 0;        // key tiles so far
+  float acc[PP / 2];
+  float pa[2][T / 8][4], pl[2][T / 8][4];  // P big and small, two sets
+  const int r0 = 64 * wg + 16 * ((ctid >> 5) & 3) + g;  // rows r0, r0 + 8
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int row = u / nc, c = u % nc, c0 = c * chunk, grp = row / hpg;
+    const bool inter = !(zero_start && c == 0);
+    // seg in log2 units: every exponential below is one ex2
+    chunk_cumsum<256>(dA + (size_t)row * s + c0, chunk, LOG2E, seg, warp_sum,
+                      ctid);
+    for (int z = nz - 1; z >= 0; --z) {
+      const int q0 = z * QT, n_kt = min(q0 / T + 2, n_qt);
+      const int qi = q0 / T + wg;
+      const int n_mine = qi < n_qt ? qi + 1 : 0;  // key tiles it reaches
+      const int l0 = q0 + r0;  // chunk-local query rows l0, l0 + 8
+
+      // ---- inter: acc = exp(seg_l) C_l . S_prev ----
+#pragma unroll
+      for (int i = 0; i < PP / 2; ++i) acc[i] = 0.f;
+      if (inter) {
+        // in parts of 32 state columns, C's A fragments of the next part
+        // loaded while this part's products run: two rows of C a thread,
+        // at constant offsets
+        const float* c_rows[2] = {C + ((size_t)grp * s + c0 + l0) * n,
+                                  C + ((size_t)grp * s + c0 + l0 + 8) * n};
+        const bool row_in[2] = {l0 < chunk, l0 + 8 < chunk};
+        float cf[2][4][4], cl[2][4][4];
+        const auto load_c = [&](int part, float (&f)[4][4]) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int col = 32 * part + 8 * kk + t + 4 * (i >> 1);
+              f[kk][i] = row_in[i & 1] && col < n ? c_rows[i & 1][col] : 0.f;
+            }
+        };
+        load_c(0, cf[0]);
+        bar_wait<true>(bars + L::S_READY, ks & 1);
+#pragma unroll
+        for (int part = 0; part < NP / 32; ++part) {
+          const int b = part & 1;
+          split(cf[b], cl[b]);
+          uint32_t sb = s_addr, ss = s_addr + L::S_BYTES;
+          asm volatile("" : "+r"(sb), "+r"(ss));
+          pin(acc);
+          pin(cf[b]);
+          pin(cl[b]);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            mma3(acc, cf[b][kk], cl[b][kk], kdesc(sb, 4 * part + kk, PP),
+                 kdesc(ss, 4 * part + kk, PP));
+          wg_commit();
+          if (part + 1 < NP / 32) load_c(part + 1, cf[b ^ 1]);
+          wg_wait_all();
+          pin(acc);
+          pin(cf[b]);
+          pin(cl[b]);
+        }
+        // the pair's last query tile has read S_prev: the next may load
+        if (z == 0 && lane == 0) bar_arrive(bars + L::S_EMPTY);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int l = l0 + 8 * h;
+          const float e = l < chunk ? exp2_approx(seg[l]) : 0.f;
+#pragma unroll
+          for (int j = 0; j < PP / 8; ++j) {
+            acc[4 * j + 2 * h] *= e;
+            acc[4 * j + 2 * h + 1] *= e;
+          }
+        }
+      }
+
+      // ---- intra: P of key tile i from its G tile, masked before the
+      // exp (the exponent is <= 0 wherever it is taken) and decayed ----
+      const auto prep = [&](int i, auto buf) {
+        constexpr int b = decltype(buf)::value;
+        const int kg = k + i, gs = kg % GS;
+        bar_wait<true>(bars + L::G_FULL + gs, (kg / GS) & 1);
+        const float4* gt =
+            reinterpret_cast<const float4*>(smem + L::G_OFF +
+                                            (gs * 2 + wg) * G_TILE) +
+            (ctid & 127);
+#pragma unroll
+        for (int j = 0; j < T / 8; ++j) {
+          const float4 v = gt[128 * j];
+          pa[b][j][0] = v.x;
+          pa[b][j][1] = v.y;
+          pa[b][j][2] = v.z;
+          pa[b][j][3] = v.w;
+        }
+        // element e of a fragment: row l0 + 8 (e & 1), key 8j + 2t + (e >> 1)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int l = l0 + 8 * (e & 1);
+          const float sl = seg[l < chunk ? l : chunk - 1];
+#pragma unroll
+          for (int j = 0; j < T / 8; ++j) {
+            const int m = T * i + 8 * j + 2 * t + (e >> 1);
+            float& v = pa[b][j][e];
+            v = (m <= l && l < chunk) ? v * exp2_approx(sl - seg[m]) : 0.f;
+          }
+        }
+        split(pa[b], pl[b]);
+        // the stage is read (its values are used): the loader may refill it
+        __syncwarp();
+        if (lane == 0) bar_arrive(bars + L::G_EMPTY + gs);
+      };
+      // acc += P . x^T for key tile i while tile i + 1's P is prepared
+      const auto step = [&](int i, auto cur, auto nxt) {
+        constexpr int b = decltype(cur)::value;
+        const int kg = k + i;
+        bar_wait<true>(bars + L::XT_FULL + (kg & 1), (kg >> 1) & 1);
+        uint32_t xt = smem_u32(smem + L::XT_OFF + (kg & 1) * 2 * L::XT_BYTES);
+        asm volatile("" : "+r"(xt));
+        pin(acc);
+        pin(pa[b]);
+        pin(pl[b]);
+        wg_fence();
+#pragma unroll
+        for (int j = 0; j < T / 8; ++j)
+          mma3(acc, pa[b][j], pl[b][j], kdesc(xt, j, PP),
+               kdesc(xt + L::XT_BYTES, j, PP));
+        wg_commit();
+        if (i + 1 < n_mine) prep(i + 1, nxt);
+        wg_wait_all();
+        pin(acc);
+        pin(pa[b]);
+        pin(pl[b]);
+        if (lane == 0) bar_arrive(bars + L::XT_EMPTY + (kg & 1));
+      };
+      if (n_mine > 0) prep(0, Buf<0>());
+      for (int i = 0; i < n_mine; i += 2) {
+        step(i, Buf<0>(), Buf<1>());
+        if (i + 1 < n_mine) step(i + 1, Buf<1>(), Buf<0>());
+      }
+      // key tiles above this warpgroup's rows: released unread
+      for (int i = n_mine; i < n_kt; ++i) {
+        const int kg = k + i;
+        bar_wait<true>(bars + L::G_FULL + kg % GS, (kg / GS) & 1);
+        if (lane == 0) bar_arrive(bars + L::G_EMPTY + kg % GS);
+        bar_wait<true>(bars + L::XT_FULL + (kg & 1), (kg >> 1) & 1);
+        if (lane == 0) bar_arrive(bars + L::XT_EMPTY + (kg & 1));
+      }
+      k += n_kt;
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int l = l0 + 8 * h;
-    if (l >= chunk) continue;
-    float* yr = y + ((size_t)row * s + c0 + l) * p;
+      for (int h = 0; h < 2; ++h) {
+        const int l = l0 + 8 * h;
+        if (l >= chunk) continue;
+        float* yr = y + ((size_t)row * s + c0 + l) * p;
 #pragma unroll
-    for (int j = 0; j < PP / 8; ++j) {
-      const int pp = 8 * j + 2 * t;
-      if (pp < p)
-        *reinterpret_cast<float2*>(yr + pp) =
-            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        for (int j = 0; j < PP / 8; ++j) {
+          const int pp = 8 * j + 2 * t;
+          if (pp < p)
+            *reinterpret_cast<float2*>(yr + pp) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
     }
+    if (inter) ++ks;
+  }
+}
+
+// Warp specialisation in one top-level branch on the warpgroup, so that
+// ptxas knows the register count at each setmaxnreg (168 at entry): the
+// producer warpgroup drops to PRODUCER_REGS, the consumers rise to
+// CONSUMER_REGS.  Named barrier 1 counts the consumer threads only.
+template <int PP, int NP>
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+    chunk_scan(const __grid_constant__ CUtensorMap tX,
+               const __grid_constant__ CUtensorMap tS,
+               const float* __restrict__ C, const float* __restrict__ scores,
+               const float* __restrict__ dA, float* __restrict__ y, int s,
+               int chunk, int nc, int n, int p, int heads_per_group,
+               int units, int zero_start) {
+  using L = LayoutC<PP, NP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+    constexpr int CONSUMER_WARPS = 8, SPLIT_WARPS = SPLITTERS / 32;
+    bar_init(bars + L::S_FULL, 1);
+    bar_init(bars + L::S_READY, SPLIT_WARPS);
+    bar_init(bars + L::S_EMPTY, CONSUMER_WARPS);
+    for (int i = 0; i < L::XS; ++i) {
+      bar_init(bars + L::X_FULL + i, 1);
+      bar_init(bars + L::X_EMPTY + i, SPLIT_WARPS);
+    }
+    for (int i = 0; i < L::GS; ++i) {
+      bar_init(bars + L::G_FULL + i, 1);
+      bar_init(bars + L::G_EMPTY + i, CONSUMER_WARPS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      bar_init(bars + L::XT_FULL + i, SPLIT_WARPS);
+      bar_init(bars + L::XT_EMPTY + i, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // 0 and 1: consumers; 2: the producer.  Read from lane 0, so that ptxas
+  // sees a warp-uniform branch
+  const int wg = __shfl_sync(FULL, (int)threadIdx.x >> 7, 0);
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int tid = threadIdx.x - 256;
+    if (tid >= 32)
+      scan_split<PP, NP>(smem, chunk, nc, units, zero_start, tid - 32);
+    else if (tid == 0)
+      scan_load<PP, NP>(smem, &tX, &tS, scores, chunk, nc, heads_per_group,
+                        units, zero_start);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    scan_consume<PP, NP>(smem, C, dA, y, s, chunk, nc, n, p,
+                         heads_per_group, units, zero_start);
   }
 }
 
@@ -619,30 +876,52 @@ cudaError_t allow_smem(K kernel, int bytes, bool* ready) {
   return err;
 }
 
+int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return 0;
+  return sms[dev];
+}
+
 template <int PP, int NP>
 int launch_t(const void* x, const void* B, const void* C, const float* dA,
              const float* init, float* y, float* final_state, float* scratch,
              int64_t bh, int64_t s, int64_t p, int64_t n, int64_t chunk,
              int64_t hpg, cudaStream_t stream) {
+  using LG = LayoutG<NP>;
   using LA = LayoutA<PP, NP>;
   using LC = LayoutC<PP, NP>;
   const int64_t nc = s / chunk, groups = bh / hpg;
+  const int n_qt = (int)((chunk + T - 1) / T), nt = causal_tiles(n_qt);
   float* states = scratch;
-  float* decay = scratch + bh * nc * n * p;
+  float* scores = states + bh * nc * n * p;
+  float* decay = scores + groups * nc * nt * (T * T);
   CUtensorMap tC, tB, tX, tS;
   int err = encode(&tC, C, n, s, groups, T);
   if (err == 0) err = encode(&tB, B, n, s, groups, T);
   if (err == 0) err = encode(&tX, x, p, s, bh, T);
   if (err == 0) err = encode(&tS, states, n, p, bh * nc, PP);
   if (err != 0) return err;
-  static bool ready_a[64] = {}, ready_c[64] = {};
-  cudaError_t e = allow_smem(chunk_states<PP, NP>, LA::SMEM, ready_a);
+  static bool ready_g[64] = {}, ready_a[64] = {}, ready_c[64] = {};
+  cudaError_t e = allow_smem(chunk_scores<NP>, LG::SMEM, ready_g);
+  if (e == cudaSuccess)
+    e = allow_smem(chunk_states<PP, NP>, LA::SMEM, ready_a);
   if (e == cudaSuccess)
     e = allow_smem(chunk_scan<PP, NP>, LC::SMEM, ready_c);
   if (e != cudaSuccess) return (int)e;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
 
-  chunk_states<PP, NP><<<dim3((unsigned)nc, (unsigned)bh), LA::NC,
-                         LA::SMEM, stream>>>(
+  chunk_scores<NP><<<dim3((unsigned)nt, (unsigned)nc, (unsigned)groups),
+                     128, LG::SMEM, stream>>>(tC, tB, scores, (int)chunk);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  chunk_states<PP, NP><<<dim3((unsigned)(NP / LA::NH), (unsigned)nc,
+                              (unsigned)bh),
+                         128, LA::SMEM, stream>>>(
       tB, tX, dA, states, decay, (int)s, (int)chunk, (int)nc, (int)n,
       (int)p, (int)hpg);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -651,24 +930,30 @@ int launch_t(const void* x, const void* B, const void* C, const float* dA,
                dim3(32, 8), 0, stream>>>(states, decay, init, final_state,
                                          (int)nc, (int)n, (int)p);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  chunk_scan<PP, NP><<<dim3((unsigned)nc, (unsigned)bh,
-                            (unsigned)((chunk + QT - 1) / QT)),
-                       256, LC::SMEM, stream>>>(
-      tC, tB, tX, tS, dA, y, (int)s, (int)chunk, (int)nc, (int)p, (int)hpg,
-      init == nullptr);
+  const int64_t units = bh * nc;
+  chunk_scan<PP, NP><<<(unsigned)(units < sms ? units : sms), SCAN_THREADS,
+                       LC::SMEM, stream>>>(
+      tX, tS, (const float*)C, scores, dA, y, (int)s, (int)chunk, (int)nc,
+      (int)n, (int)p, (int)hpg, (int)units, init == nullptr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory per CTA of chunk_scan and (in *states_smem) of
-// chunk_states, in bytes, at (p, n); 0 if the pair is not supported.
+// Dynamic shared memory per CTA of chunk_scan, and in *states_smem of
+// chunk_states, in *scores_smem of chunk_scores, in bytes, and in
+// *g_stages chunk_scan's G ring depth, at (p, n); 0 if the pair is not
+// supported.
 extern "C" int64_t ssd_scan_layout(int64_t p, int64_t n,
-                                   int64_t* states_smem) {
-  *states_smem = 0;
+                                   int64_t* states_smem,
+                                   int64_t* scores_smem,
+                                   int64_t* g_stages) {
+  *states_smem = *scores_smem = *g_stages = 0;
 #define SSD_LAYOUT(P_, N_, PP, NP)                                          \
   if (p == P_ && n == N_) {                                                 \
     *states_smem = LayoutA<PP, NP>::SMEM;                                   \
+    *scores_smem = LayoutG<NP>::SMEM;                                       \
+    *g_stages = LayoutC<PP, NP>::GS;                                        \
     return LayoutC<PP, NP>::SMEM;                                           \
   }
   SSD_LAYOUT(8, 4, 32, 32)
@@ -681,13 +966,25 @@ extern "C" int64_t ssd_scan_layout(int64_t p, int64_t n,
   return 0;
 }
 
+// chunk_scan's threads, and the registers a thread that setmaxnreg gives
+// its producer warpgroup (*producer_regs) and each consumer warpgroup
+// (*consumer_regs).
+extern "C" int64_t ssd_scan_threads(int64_t* producer_regs,
+                                    int64_t* consumer_regs) {
+  *producer_regs = PRODUCER_REGS;
+  *consumer_regs = CONSUMER_REGS;
+  return SCAN_THREADS;
+}
+
 // x, y: (bh, s, p); B, C: (bh / heads_per_group, s, n); dA: (bh, s);
 // init, final_state: (bh, n, p) or null; scratch: bh * (s / chunk) *
-// (n * p + 1) floats; all float32 and contiguous, x, B, C and scratch
+// (n * p + 1) + (bh / heads_per_group) * (s / chunk) * t * 4096 floats,
+// t = q (q + 1) / 2 causal tiles of q = ceil(chunk / 64) (ssd_scan.py's
+// scratch_floats); all float32 and contiguous, x, B, C and scratch
 // 16-byte aligned.  s % chunk == 0, 1 <= chunk <= 256, (p, n) one of the
-// pairs below.  Launches chunk_states, state_pass and chunk_scan on the
-// stream.  Returns cudaGetLastError() (or the error of the attribute call
-// or of the tensor-map encoding).
+// pairs below.  Launches chunk_scores, chunk_states, state_pass and
+// chunk_scan on the stream.  Returns cudaGetLastError() (or the error of
+// the attribute call or of the tensor-map encoding).
 extern "C" int ssd_scan_launch(const void* x, const void* B, const void* C,
                                const void* dA, const void* init, void* y,
                                void* final_state, void* scratch, int64_t bh,

@@ -14,11 +14,13 @@ repeat to every head); dA: (BH, S), <= 0.
 
 :func:`ssd_scan` launches the CUDA kernel ``csrc/ssd_scan.cu`` for CUDA
 tensors and runs :func:`ssd_scan_plain` for CPU tensors.  The kernel runs
-on the tensor cores in 3xTF32 (float32 accuracy) as three passes: each
-chunk's own end state, a short sequential pass over the chunks for the
-state entering each, and the chunks' outputs, all chunks in parallel.
-The wrapper allocates the passes' scratch, (BH, S / chunk, P, N) states
-and (BH, S / chunk) decays, and frees it when the call returns.  Beyond the
+on the tensor cores in 3xTF32 (float32 accuracy) as four passes: the
+scores C . B^T of each B/C group's causal 64 x 64 tiles (once for the
+group's heads), each chunk's own end state, a short sequential pass over
+the chunks for the state entering each, and the chunks' outputs, all
+chunks in parallel.  The wrapper allocates the passes' scratch
+(:func:`scratch_floats`: (BH, S / chunk, P, N) states, the score tiles,
+(BH, S / chunk) decays) and frees it when the call returns.  Beyond the
 reference's ``ssd_scan_pallas``, which returns y from a zero state, it
 can start from a given state and return the state after the last chunk,
 which the model's cache-building prefill hands to decode.  The kernel is
@@ -41,6 +43,16 @@ MAX_CHUNK = 256
 KERNEL = CudaKernel(
     "ssd_scan", "ssd_scan.cu", "ssd_scan_launch",
     [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 6)
+
+
+def scratch_floats(bh: int, s: int, p: int, n: int, chunk: int,
+                   heads_per_group: int = 1) -> int:
+    """Floats of the kernel's scratch: each chunk's state (BH, S / chunk,
+    P, N) and decay (BH, S / chunk), and each group's causal 64 x 64 score
+    tiles, q (q + 1) / 2 a chunk of q = ceil(chunk / 64) query tiles."""
+    nc, q = s // chunk, -(-chunk // 64)
+    return (bh * nc * (n * p + 1)
+            + bh // heads_per_group * nc * q * (q + 1) // 2 * 64 * 64)
 
 
 def ssd_scan_plain(xdt, Bh, Ch, dA, chunk: int, heads_per_group: int = 1,
@@ -116,9 +128,9 @@ def ssd_scan(xdt, Bh, Ch, dA, chunk: int, final: bool = False,
     y = torch.empty_like(xdt)
     state = (torch.empty((bh, n, p), dtype=torch.float32, device=xdt.device)
              if final else None)
-    nc = s // chunk
-    scratch = torch.empty(bh * nc * (n * p + 1), dtype=torch.float32,
-                          device=xdt.device)
+    scratch = torch.empty(scratch_floats(bh, s, p, n, chunk,
+                                         heads_per_group),
+                          dtype=torch.float32, device=xdt.device)
     KERNEL.launch(xdt.device, xdt.data_ptr(), Bh.data_ptr(), Ch.data_ptr(),
                   dA.data_ptr(), init[0].data_ptr() if init else None,
                   y.data_ptr(), state.data_ptr() if final else None,

@@ -440,6 +440,20 @@ def test_ssd_scan_kernel_matches_plain(gpu, bh, s, p, n, chunk, hpg):
     torch.testing.assert_close(state, want_state, **SSD_TOL)
 
 
+def test_ssd_scan_kernel_shares_c_bt_across_a_group(gpu):
+    """C . B^T is computed once a B/C group and shared by its heads: at
+    zamba2's serve shape, 80 heads a group give the y and final state of
+    B and C repeated to every head with one head a group, bit for bit."""
+    bh, s, p, n, chunk, hpg = 320, 1024, 64, 64, 256, 80
+    xdt, B, C, dA = _ssd_inputs(gpu, bh, s, p, n, hpg, 30)
+    y, state = ssd_scan(xdt, B, C, dA, chunk, final=True,
+                        heads_per_group=hpg)
+    y1, state1 = ssd_scan(xdt, B.repeat_interleave(hpg, 0),
+                          C.repeat_interleave(hpg, 0), dA, chunk, final=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y1) and torch.equal(state, state1)
+
+
 def test_ssd_scan_kernel_launches_once_and_frees_its_scratch(gpu):
     """One wrapper call is one count, whatever the kernel launches inside;
     the passes' scratch lives only for the call (the kernel allocates

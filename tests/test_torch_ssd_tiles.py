@@ -1,10 +1,12 @@
 """The SSD scan kernel's algorithm, emulated on the CPU.
 
-``csrc/ssd_scan.cu`` runs the chunked SSD on the tensor cores as three
-passes: each chunk's own end state (B o w)^T x over 64-key tiles, a
-sequential pass over the chunks for the state entering each, and per
-64-query tile y = exp(seg) (C . S_prev) plus the key tiles at or below the
-diagonal, (C . B^T masked before the exp, decayed) . x.  Every product is
+``csrc/ssd_scan.cu`` runs the chunked SSD on the tensor cores as four
+passes: the scores G = C . B^T of each B/C group's causal 64 x 64 tiles,
+once for the group's heads; each chunk's own end state (B o w)^T x over
+64-key tiles; a sequential pass over the chunks for the state entering
+each; and per 64-query tile y = exp(seg) (C . S_prev) plus the key tiles
+at or below the diagonal, (G masked before the exp, decayed) . x.  Every
+product is
 3xTF32: a TF32 operand keeps the top 10 mantissa bits (the tensor core
 drops the low 13), so each operand a is split into trunc(a) and
 a - trunc(a), and trunc(a).trunc(b) + trunc(a).rest(b) + rest(a).trunc(b)
@@ -57,13 +59,18 @@ def mm(a, b, passes):
 
 
 def emulate(xdt, Bh, Ch, dA, chunk, hpg=1, init=None, passes=3):
-    """The kernel's three passes and tile order: (y, final state)."""
+    """The kernel's four passes and tile order: (y, final state)."""
     bh, s, p = xdt.shape
     n = Bh.shape[-1]
     nc, L = s // chunk, chunk
     x = xdt.reshape(bh, nc, L, p)
-    B, C = (t.repeat_interleave(hpg, 0).reshape(bh, nc, L, n)
-            for t in (Bh, Ch))
+    Bg, Cg = (t.reshape(bh // hpg, nc, L, n) for t in (Bh, Ch))
+    grp = torch.arange(bh) // hpg        # each head's B/C group
+    B, C = Bg[grp], Cg[grp]
+    # (0) the scores of the causal 64 x 64 tiles, once a group
+    G = {(q0, k0): mm(Cg[..., q0:q0 + T, :],
+                      Bg[..., k0:k0 + T, :].transpose(-1, -2), passes)
+         for q0 in range(0, L, T) for k0 in range(0, q0 + 1, T)}
     seg = dA.reshape(bh, nc, L).cumsum(-1)
     # (a) each chunk's own end state, over 64-key tiles
     w = torch.exp(seg[..., -1:] - seg)
@@ -87,7 +94,7 @@ def emulate(xdt, Bh, Ch, dA, chunk, hpg=1, init=None, passes=3):
         acc = torch.exp(seg[..., q0:q0 + T, None]) * mm(cq, prev, passes)
         for k0 in range(0, q0 + 1, T):
             keys = torch.arange(k0, min(k0 + T, L))
-            sc = mm(cq, B[..., k0:k0 + T, :].transpose(-1, -2), passes)
+            sc = G[q0, k0][grp]
             keep = keys[None, :] <= rows[:, None]
             diff = (seg[..., q0:q0 + T, None]
                     - seg[..., None, k0:k0 + T]).masked_fill(~keep, -np.inf)
@@ -151,3 +158,19 @@ def test_single_pass_tf32_misses_the_tolerance():
     assert _worst(one[0], want_y) > 5.0
     assert _worst(three[0], want_y) < 0.2
     assert _worst(three[1], want_state) < 0.2
+
+
+@pytest.mark.parametrize("bh,s,p,n,chunk,hpg", [
+    (80, 512, 64, 64, 256, 80),       # zamba2-2.7b's group of 80 heads
+    (16, 160, 64, 64, 32, 8),         # its width-80 smoke variant
+])
+def test_emulation_shares_the_scores_across_a_group(bh, s, p, n, chunk,
+                                                    hpg):
+    """C . B^T is computed once a group and shared by its heads: the
+    group's y and state equal, bit for bit, those of B and C repeated to
+    every head with one head a group."""
+    xdt, B, C, dA, init = _inputs(bh, s, p, n, hpg, s + hpg)
+    y, state = emulate(xdt, B, C, dA, chunk, hpg, init)
+    y1, state1 = emulate(xdt, B.repeat_interleave(hpg, 0),
+                         C.repeat_interleave(hpg, 0), dA, chunk, 1, init)
+    assert torch.equal(y, y1) and torch.equal(state, state1)

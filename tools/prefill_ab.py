@@ -31,8 +31,8 @@ from pathlib import Path
 THIS = Path(__file__).resolve().parents[1]
 BATCH, PROMPT, GEN = 4, 1024, 32
 # the kernels of src/repro_torch/csrc that a prefill launches, by name
-PORT_KERNELS = re.compile(r"flash_fwd|ssd_scan_kernel|chunk_states|"
-                          r"state_pass|chunk_scan")
+PORT_KERNELS = re.compile(r"flash_fwd|ssd_scan_kernel|chunk_scores|"
+                          r"chunk_states|state_pass|chunk_scan")
 
 
 def short(kernel: str) -> str:

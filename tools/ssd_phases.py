@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Where the SSD scan's chunk_scan kernel spends its cycles, on one GPU.
 
-    python3 tools/ssd_phases.py
+    python3 tools/ssd_phases.py [--shape mamba2|zamba2]
 
 Builds a copy of ``src/repro_torch/csrc/ssd_scan.cu`` into
 ``build/ssd_phases/`` with ``clock64()`` read by the first thread of each
-warpgroup of chunk_scan at the ends of its phases, runs the scan once at
-the mamba2-370m prefill's shape (BH 128, S 1024, P 64, N 128, chunk 256,
-32 heads per group) and prints the cycles per warpgroup spent in each
-phase, summed over its key tiles.  The phases are found by the comments
-and statements of the source; the script fails if one is missing.  The
-counters take cycles themselves: read the shares more than the sum.
-Needs a CUDA GPU.
+consumer warpgroup of chunk_scan at the ends of its phases, runs the scan
+once at the prefill's shape (mamba2: mamba2-370m's (BH 128, S 1024, P 64,
+N 128, chunk 256, 32 heads per group); zamba2: zamba2-2.7b's (BH 320,
+S 1024, P 64, N 64, chunk 256, 80 heads per group)) and prints the cycles
+per consumer warpgroup spent in each phase, summed over its (row, chunk)
+pairs, query tiles and key tiles.  The phases are found by the statements
+of the source; the script fails if one is missing.  The counters take
+cycles themselves: read the shares more than the sum.  Needs a CUDA GPU.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -23,23 +25,38 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-# (anchor in the source, phase that ends there)
+SHAPES = {"mamba2": (128, 1024, 64, 128, 256, 32),
+          "zamba2": (320, 1024, 64, 64, 256, 80)}
+# (anchor in the source, phase that ends there), in the order a consumer
+# passes them; the key-tile phases repeat per tile (the next tile's P is
+# prepared while this tile's product runs)
 PHASES = [
-    ("  bar_wait(c_full, 0);", "start: C loaded, seg's cumsum"),
-    ("  consumer_sync<NC>();  // C and S_prev are read: regions 0 and u "
-     "are free", "C fragments, S_prev split, C . S_prev"),
-    ("  bar_wait(full, 0);\n  split_b(0);\n  split_x(0);\n  fence_async();\n"
-     "  consumer_sync<NC>();", "tile 0 split"),
-    ("    wg_commit();\n    if (next) {", "C . B^T issued"),
-    ("    consumer_sync<NC>();  // every C . B^T is done: B small is free",
-     "x^T of the next tile, C . B^T done"),
-    ("    split(pa, pl);", "mask and decay"),
-    ("    consumer_sync<NC>();  // x^T of tile i is free; tile i + 1 is split",
-     "P . x and B small of the next tile"),
+    ("    chunk_cumsum<256>(dA + (size_t)row * s + c0, chunk, LOG2E, seg, "
+     "warp_sum,\n                      ctid);",
+     "pair start: both consumers, seg's cumsum"),
+    ("        bar_wait<true>(bars + L::S_READY, ks & 1);",
+     "C (unless loaded ahead), its split; S_prev split"),
+    ("        if (z == 0 && lane == 0) bar_arrive(bars + L::S_EMPTY);",
+     "C . S_prev"),
+    ("        bar_wait<true>(bars + L::G_FULL + gs, (kg / GS) & 1);",
+     "wait for a G tile"),
+    ("        split(pa[b], pl[b]);", "G fragments, mask, decay, split"),
+    ("        const int kg = k + i;\n        bar_wait<true>(bars + "
+     "L::XT_FULL + (kg & 1), (kg >> 1) & 1);", "wait for x^T"),
+    ("          mma3(acc, pa[b][j], pl[b][j], kdesc(xt, j, PP),\n"
+     "               kdesc(xt + L::XT_BYTES, j, PP));\n        wg_commit();",
+     "P . x issued"),
+    ("        wg_wait_all();\n        pin(acc);\n        pin(pa[b]);\n"
+     "        pin(pl[b]);", "P . x done"),
+    ("      k += n_kt;", "key tiles above its rows, released"),
+    ("            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);\n"
+     "        }\n      }", "y stored"),
 ]
-START = "  // seg in log2 units: every exponential below is one ex2"
-END = ("#pragma unroll\n  for (int h = 0; h < 2; ++h) {\n"
-       "    const int l = l0 + 8 * h;\n    if (l >= chunk) continue;")
+START = ("  for (int u = blockIdx.x; u < units; u += gridDim.x) {\n"
+         "    const int row = u / nc, c = u % nc, c0 = c * chunk, "
+         "grp = row / hpg;\n"
+         "    const bool inter")
+END = "}\n\n// Warp specialisation in one top-level branch on the warpgroup"
 
 
 def instrumented(src: str) -> str:
@@ -53,9 +70,9 @@ def instrumented(src: str) -> str:
     src = at(src, START, f"  long long prof[{k}] = {{}}, t_ = clock64();\n",
              before=True)
     for i, (anchor, _) in enumerate(PHASES):
-        src = at(src, anchor, "\n  if ((tid & 127) == 0) { const long long "
+        src = at(src, anchor, "\n  if ((ctid & 127) == 0) { const long long "
                  f"n_ = clock64(); prof[{i}] += n_ - t_; t_ = n_; }}")
-    src = at(src, END, f"  if ((tid & 127) == 0) for (int k = 0; k < {k}; "
+    src = at(src, END, f"  if ((ctid & 127) == 0) for (int k = 0; k < {k}; "
              "++k) atomicAdd(&g_prof[k], (unsigned long long)prof[k]);\n",
              before=True)
     return at(src, "namespace {\n", f"""__device__ unsigned long long g_prof[{k}];
@@ -70,9 +87,13 @@ extern "C" int prof_zero() {{
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--shape", choices=list(SHAPES), default="mamba2")
+    args = ap.parse_args()
     import torch
 
     from repro_torch.kernels import runtime
+    from repro_torch.kernels.ssd_scan import scratch_floats
     if not torch.cuda.is_available():
         raise SystemExit("ssd_phases: no CUDA device")
     out_dir = ROOT / "build" / "ssd_phases"
@@ -91,7 +112,7 @@ def main() -> int:
         ctypes.c_void_p]
 
     dev = torch.device("cuda", 0)
-    bh, s, p, n, chunk, hpg = 128, 1024, 64, 128, 256, 32
+    bh, s, p, n, chunk, hpg = SHAPES[args.shape]
     g = torch.Generator(device=dev).manual_seed(11)
     xdt = 0.5 * torch.randn(bh, s, p, generator=g, device=dev)
     B, C = (0.5 * torch.randn(bh // hpg, s, n, generator=g, device=dev)
@@ -100,7 +121,7 @@ def main() -> int:
                                                    device=dev))
     y = torch.empty_like(xdt)
     state = torch.empty(bh, n, p, device=dev)
-    scratch = torch.empty(bh * (s // chunk) * (n * p + 1), device=dev)
+    scratch = torch.empty(scratch_floats(bh, s, p, n, chunk, hpg), device=dev)
 
     def call():
         err = fn(xdt.data_ptr(), B.data_ptr(), C.data_ptr(), dA.data_ptr(),
@@ -118,10 +139,13 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = (ctypes.c_ulonglong * len(PHASES))()
     so.prof_read(counts)
-    wgs = 2 * bh * (s // chunk) * ((chunk + 127) // 128)
+    units = bh * (s // chunk)
+    wgs = 2 * min(units, torch.cuda.get_device_properties(dev)
+                  .multi_processor_count)
     total = sum(counts)
-    print(f"chunk_scan at {(bh, s, p, n)} chunk {chunk}, {wgs} warpgroups; "
-          f"{torch.cuda.get_device_name(0)}")
+    print(f"chunk_scan at {(bh, s, p, n)} chunk {chunk}, heads per group "
+          f"{hpg}: {units} (row, chunk) pairs on {wgs // 2} CTAs, {wgs} "
+          f"consumer warpgroups; {torch.cuda.get_device_name(0)}")
     for (_, name), c in zip(PHASES, counts):
         print(f"  {name:42s} {c / wgs:9.0f} cycles per warpgroup "
               f"({100 * c / total:4.1f}%)")
