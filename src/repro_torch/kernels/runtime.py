@@ -204,10 +204,19 @@ def on_local_rows(fn, *tensors, **kwargs):
         return DTensor.from_local(o.contiguous(), mesh, place,
                                   run_check=False,
                                   shape=torch.Size(shape),
-                                  stride=torch.empty(shape,
-                                                     device="meta").stride())
+                                  stride=contiguous_strides(shape))
 
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``, nothing
+    allocated (a meta tensor of a DTensor's global shape would count in
+    the dry run's MemTracker at its full size)."""
+    out = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        out[d] = out[d + 1] * max(shape[d + 1], 1)
+    return tuple(out)
 
 
 def records_grad(*tensors) -> bool:

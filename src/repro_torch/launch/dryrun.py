@@ -20,15 +20,23 @@ port's own (``launch/steps.py``); rank 0's view of it gives:
 * ``memtracker_peak_bytes``: the peak of the bytes the step holds on rank
   0 (its arguments and everything it allocates), as
   ``torch.distributed._tools.mem_tracker.MemTracker`` counts the meta
-  tensors' storages.  A kernel on meta allocates only its output, as it
-  does on the card (``kernels/runtime.py::shapes_only``).
+  tensors' storages of the ops on the local blocks (not the fake
+  tensors of DTensor's own propagation, which torch 2.11's MemTracker
+  counts: :func:`_mem_tracker`).  A kernel on meta allocates only its
+  output, as it does on the card (``kernels/runtime.py::shapes_only``);
+  a prefill makes each rank's blocks of its cache alone
+  (:func:`placed_zeros`).
 
 Gaps of DTensor's strategies (a view of a sharded dim that DTensor
 refuses, as 14 heads of 64 over 16 ranks; a masked partial sum; ops
-whose strategies some torch releases fail) are bridged by
-redistributions and counted under ``reshards`` (:class:`ShardingGaps`).
-An op with no strategy at all fails the step, and its record is an
-``error`` with the exception.
+whose strategies torch 2.11 or 2.13 fails, or which they would hold
+whole on a rank) are bridged by redistributions or each rank's block,
+placed as the rules place the tensor, and counted under ``reshards``
+(:class:`ShardingGaps` lists each and the release that needs it).  An
+op with no strategy at all fails the step, and its record is an
+``error`` with the exception.  On torch 2.11 and 2.13 alike every
+(arch x shape) of ``--all`` and ``--all --multi-pod`` is ``ok`` or
+``skipped``.
 
 Usage (CPU, no GPU needed; records under ``build/dryrun/``, or
 ``--out``):
@@ -48,6 +56,7 @@ import math
 import time
 import traceback
 from collections import Counter
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -55,6 +64,7 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..configs import INPUT_SHAPES, get_config, input_specs, list_archs
+from ..kernels.runtime import contiguous_strides
 from ..models import kvcache
 from ..models.shardhooks import set_activation_sharding
 from ..models.transformer import init_params, tree_map
@@ -158,6 +168,35 @@ def place(mesh, tree, spec_tree):
                               stride=tree.stride())
 
 
+def placed_zeros(mesh, c_specs):
+    """``init_cache(batch, seq_len, device)`` for a prefill on ``mesh``:
+    each leaf of ``kvcache.cache_shapes`` zeros of this rank's block,
+    placed by its spec in ``c_specs`` (``cache_pspecs``).  No rank makes
+    the whole cache first (the values are those of ``place`` of the
+    whole zeros)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    def zeros(shape, dtype, spec, device):
+        placements = shp.to_placements(mesh, spec, len(shape))
+        local, _ = compute_local_shape_and_global_offset(shape, mesh,
+                                                         placements)
+        return DTensor.from_local(
+            torch.zeros(local, dtype=dtype, device=device), mesh, placements,
+            run_check=False, shape=torch.Size(shape),
+            stride=contiguous_strides(shape))
+
+    def init_cache(cfg, batch: int, seq_len: int, device=None):
+        return {group: 0 if group == "pos" else
+                {k: zeros(s, d, c_specs[group][k], device)
+                 for k, (s, d) in leaves.items()}
+                for group, leaves in kvcache.cache_shapes(
+                    cfg, batch, seq_len).items()}
+
+    return init_cache
+
+
 def _local_bytes(tree) -> int:
     from torch.distributed.tensor import DTensor
     total = 0
@@ -205,6 +244,13 @@ class CollectiveRecorder(TorchDispatchMode):
         return out
 
 
+def _narrows(x, kwargs) -> bool:
+    """A ``_to_copy`` of ``x`` to a floating dtype of fewer bits."""
+    dt = kwargs.get("dtype")
+    return (dt is not None and dt.is_floating_point and
+            x.dtype.is_floating_point and dt.itemsize < x.dtype.itemsize)
+
+
 def _is_mask_partial(p) -> bool:
     return type(p).__name__ in ("MaskPartial", "_MaskPartial")
 
@@ -212,20 +258,36 @@ def _is_mask_partial(p) -> bool:
 class ShardingGaps(TorchDispatchMode):
     """Gaps of DTensor's strategies, each bridged with a redistribution
     (whose collectives the recorder counts) or a rule of each rank's
-    block, and counted in ``counts``:
+    block, and counted in ``counts`` under its op's name; the torch
+    release that needs each (2.11: the card machine's; 2.13):
 
-    * a view DTensor refuses for a sharded dim (one that does not split
-      evenly into the new dims, as 896 = 14 heads x 64 over 16 ranks,
-      or that merges with another): the fewest of the dims the view
-      changes are replicated first;
+    * a view DTensor refuses for a sharded dim (both releases: a split
+      that does not divide, as 896 = 14 heads x 64 over 16 ranks, whose
+      heads the rules replicate too (``head_axis``); 2.11 also: a merge
+      of a split dim into the dim before it, the sequence-parallel
+      residual's rows flattened for a product that gathers them anyway,
+      where 2.13 keeps a strided split): the fewest of the dims the view
+      changes are replicated first (:meth:`_view_replicating`);
     * a view of a DTensor whose block is laid out otherwise than its
       strides say (some backward products): of a contiguous copy of the
       block;
-    * a pad: on each rank's block, the padded dims replicated first
-      (some releases' strategy returns a spec of the wrong length);
+    * a pad (2.11's strategy returns a spec of the wrong length; the
+      bucketed logits' vocabulary on both): on each rank's block, a
+      partial sum summed and a padded dim's split moved first, each to
+      the largest unpadded dim it divides (:meth:`_pad_locally`);
+    * a new tensor of another shape than its input (both: a gather's
+      gradient, zeros of the logits' shape, which DTensor replicates):
+      split as its input on the dims they share (:meth:`_new_as_input`);
     * an accumulating indexed add into a replicated tensor (an embedding
-      lookup's gradient) whose strategy fails: partial sums of each
-      rank's rows, summed (:meth:`_index_put_as_partial_sum`);
+      lookup's gradient) whose strategy fails (2.11): partial sums of
+      each rank's rows, summed (:meth:`_index_put_as_partial_sum`);
+    * an index whose dim two mesh dims split (2.11: the tokens over
+      ("pod", "data") of an embedding lookup): the index split once and
+      gathered on the other mesh dim (:meth:`_index_split_once`);
+    * an op that asks a split operand to become a partial sum (2.11
+      cannot redistribute Shard to Partial: the MoE decode's residual
+      add): the partial operand summed first, into the split
+      (:meth:`_partial_summed_first`);
     * an arg-max or -min that fails (a batch of 1 over 16 ranks): over
       the replicated input;
     * a result held as a masked partial sum (a lookup into a sharded
@@ -247,6 +309,20 @@ class ShardingGaps(TorchDispatchMode):
         name = func._schema.name.partition("::")[2]
         if name == "constant_pad_nd":
             return self._pad_locally(func, args, kwargs)
+        if name in ("new_zeros", "new_empty"):
+            out = self._new_as_input(func, args, kwargs)
+            if out is not None:
+                self.counts[f"{name} split as its input"] += 1
+                return out
+        if name == "_to_copy" and _narrows(args[0], kwargs) and \
+                any(p.is_partial() for p in args[0].placements):
+            # a partial sum cast down rounds each part, not the sum
+            # (2.13 casts it as it is; the FL sync's float32 mean)
+            self.counts["_to_copy of a partial sum"] += 1
+            x = args[0]
+            args = (x.redistribute(x.device_mesh, tuple(
+                Replicate() if p.is_partial() else p
+                for p in x.placements)),) + tuple(args[1:])
         try:
             out = func(*args, **kwargs)
         except RuntimeError as e:
@@ -261,6 +337,10 @@ class ShardingGaps(TorchDispatchMode):
                     *args[1:], **kwargs)
             elif name == "index_put" and not kwargs:
                 out = self._index_put_as_partial_sum(func, *args)
+            elif name == "index" and "hybrid" in str(e):
+                out = self._index_split_once(func, *args)
+            elif "not supported yet" in str(e) and " to P(" in str(e):
+                out = self._partial_summed_first(func, args, kwargs, e)
             elif name in ("argmax", "argmin"):
                 x = args[0]
                 out = func(x.redistribute(
@@ -278,25 +358,69 @@ class ShardingGaps(TorchDispatchMode):
         return out
 
     def _pad_locally(self, func, args, kwargs):
-        """The pad of ``args[0]`` on each rank's block, the padded dims
-        replicated first (some releases' DTensor strategy for a pad
-        returns a spec of the wrong length)."""
+        """The pad of ``args[0]`` on each rank's block (some releases'
+        DTensor strategy for a pad returns a spec of the wrong length).
+        Before it, a partial sum is summed (the pad of the parts is not
+        the part of the pad), then a mesh dim that shards a padded dim
+        moves its split; each to the largest unpadded dim it divides
+        (the padded logits' vocabulary to their rows), so no rank holds
+        the padded dim whole over the other dims.  Only where no dim
+        takes it is the mesh dim replicated."""
         from torch.distributed.tensor import DTensor, Replicate, Shard
         x, pad = args[0], list(args[1])
+        mesh = x.device_mesh
         shape = list(x.shape)
         for i in range(len(pad) // 2):
             shape[x.ndim - 1 - i] += pad[2 * i] + pad[2 * i + 1]
         padded = {d for d in range(x.ndim) if shape[d] != x.shape[d]}
-        place = tuple(Replicate() if isinstance(p, Shard) and p.dim in padded
-                      else p for p in x.placements)
+        place = list(x.placements)
+        for j, p in enumerate(place):
+            if not (p.is_partial() or isinstance(p, Shard) and
+                    p.dim in padded):
+                continue
+            parts = [math.prod(mesh.size(k) for k, q in enumerate(place)
+                               if k != j and q == Shard(d))
+                     for d in range(x.ndim)]
+            fit = [d for d in range(x.ndim) if d not in padded and
+                   shape[d] % (parts[d] * mesh.size(j)) == 0]
+            place[j] = Shard(max(fit, key=lambda d: shape[d] // parts[d])) \
+                if fit else Replicate()
+        place = tuple(place)
         if place != tuple(x.placements):
             self.counts["constant_pad_nd of a sharded dim"] += 1
-            x = x.redistribute(x.device_mesh, place)
+            # the sums first: a split that moves then moves 1/n of it
+            x = x.redistribute(mesh, tuple(
+                q if p.is_partial() else p
+                for p, q in zip(x.placements, place))).redistribute(
+                    mesh, place)
         out = func(x.to_local(), *args[1:], **kwargs)
-        return DTensor.from_local(out, x.device_mesh, place, run_check=False,
+        return DTensor.from_local(out, mesh, place, run_check=False,
                                   shape=torch.Size(shape),
-                                  stride=torch.empty(shape,
-                                                     device="meta").stride())
+                                  stride=contiguous_strides(shape))
+
+    @staticmethod
+    def _new_as_input(func, args, kwargs):
+        """A new tensor of another shape than its input ``args[0]`` (a
+        gather's gradient: zeros of the logits' shape from a gradient of
+        the shape of its index), split as the input on each dim the two
+        share, or None where they share no split dim.  DTensor's strategy
+        replicates it (the whole (B, C, V) logits on every rank); its
+        values are the same under any placement."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        x, size = args[0], torch.Size(args[1])
+        mesh = x.device_mesh
+        place = tuple(p if isinstance(p, Shard) and len(size) == x.ndim
+                      and size[p.dim] == x.shape[p.dim] else Replicate()
+                      for p in x.placements)
+        if size == x.shape or all(p == Replicate() for p in place):
+            return None
+        shape, _ = compute_local_shape_and_global_offset(size, mesh, place)
+        return DTensor.from_local(
+            func(x.to_local(), shape, *args[2:], **kwargs), mesh, place,
+            run_check=False, shape=size,
+            stride=contiguous_strides(size))
 
     @staticmethod
     def _index_put_as_partial_sum(func, x, indices, values,
@@ -321,6 +445,54 @@ class ShardingGaps(TorchDispatchMode):
             part, mesh, tuple(Partial() if p == Shard(0) else Replicate()
                               for p in rows), run_check=False)
         return x + part.redistribute(mesh, x.placements)
+
+    @staticmethod
+    def _index_split_once(func, x, indices):
+        """``x[idx]`` where two mesh dims split one dim of the index
+        (2.11's strategy fails for it: the tokens over ("pod", "data")):
+        the index keeps the first mesh dim's split of each dim and is
+        gathered on the others (its bytes are the tokens'), and DTensor
+        takes the op from there (the table keeps its own split on those
+        mesh dims, as 2.13's strategy keeps it)."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        new = []
+        for idx in indices:
+            if isinstance(idx, DTensor):
+                split, place = set(), []
+                for p in idx.placements:
+                    twice = isinstance(p, Shard) and p.dim in split
+                    place.append(Replicate() if twice else p)
+                    if isinstance(p, Shard):
+                        split.add(p.dim)
+                if tuple(place) == tuple(idx.placements):
+                    raise RuntimeError("no bridge for this index")
+                idx = idx.redistribute(idx.device_mesh, place)
+            new.append(idx)
+        return func(x, new)
+
+    @staticmethod
+    def _partial_summed_first(func, args, kwargs, err):
+        """An op whose strategy asks a split operand to become a partial
+        sum, which 2.11 cannot redistribute: the partial sums are summed
+        first, into the split of an operand of the same shape that is
+        split on that mesh dim (a reduce-scatter), else whole (an
+        all-reduce), and DTensor takes the op from there."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        dts = [a for a in args if isinstance(a, DTensor)]
+        new, summed = list(args), False
+        for i, a in enumerate(args):
+            if not (isinstance(a, DTensor) and
+                    any(p.is_partial() for p in a.placements)):
+                continue
+            summed = True
+            new[i] = a.redistribute(a.device_mesh, tuple(
+                next((b.placements[j] for b in dts if b.shape == a.shape
+                      and isinstance(b.placements[j], Shard)), Replicate())
+                if p.is_partial() else p
+                for j, p in enumerate(a.placements)))
+        if not summed:
+            raise err
+        return func(*new, **kwargs)
 
     @staticmethod
     def _view_replicating(func, args, kwargs, err):
@@ -351,8 +523,28 @@ class ShardingGaps(TorchDispatchMode):
 
 
 def _mem_tracker():
+    """A MemTracker of the ops on the local blocks alone.  DTensor's
+    sharding propagation runs some ops (a view's) on fake tensors at the
+    global shape, under a fake mode of its own: torch 2.13's MemTracker
+    skips them, 2.11's counts them (the whole (B, S, V) logits of a
+    prefill, 297 GiB a rank).  Ops under another fake mode than the one
+    active on entry are run untracked, on every release."""
+    from torch._guards import active_fake_mode
     from torch.distributed._tools.mem_tracker import MemTracker
-    return MemTracker()
+    from torch.distributed.tensor import DTensor
+
+    class LocalMemTracker(MemTracker):
+        def __enter__(self):
+            self._entry_fake_mode = active_fake_mode()
+            return super().__enter__()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not any(t is DTensor for t in types) and \
+                    active_fake_mode() is not self._entry_fake_mode:
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return LocalMemTracker()
 
 
 def _peak(mt) -> int:
@@ -429,8 +621,8 @@ def build(cfg, shape_name: str, mesh):
         c_specs = shp.batch_pspecs(
             cfg, mesh, {"cache": kvcache.cache_specs(
                 cfg, shape.global_batch, shape.seq_len)})["cache"]
-        fn = make_prefill_step(cfg, shape.seq_len,
-                               lambda c: place(mesh, c, c_specs))
+        fn = make_prefill_step(cfg, shape.seq_len, init_cache=partial(
+            placed_zeros(mesh, c_specs), cfg))
     else:
         fn = make_decode_step(cfg)
     return (sharded_step(fn), (p_specs, specs), (p_pspecs, b_pspecs),
@@ -456,7 +648,7 @@ def serve_on_mesh(cfg, params, mesh, prompts, gen: int, extra=None,
     c_specs = shp.batch_pspecs(
         cfg, mesh, {"cache": kvcache.cache_specs(cfg, B, total)})["cache"]
     prefill = sharded_step(make_prefill_step(
-        cfg, total, lambda c: place(mesh, c, c_specs)))
+        cfg, total, init_cache=partial(placed_zeros(mesh, c_specs), cfg)))
     decode = sharded_step(make_decode_step(cfg))
     set_activation_sharding(shp.sharding_hook(cfg, mesh))
     try:

@@ -24,6 +24,7 @@ from .. import optim
 from ..core.outputs import bucket_log_probs, bucketize_tokens
 from ..models import kvcache
 from ..models.layers import checkpointed
+from ..models.shardhooks import constrain
 from ..models.transformer import (forward, tree_leaves, tree_map,
                                   unembed_matrix)
 from .mesh import all_reduce_sum
@@ -65,8 +66,10 @@ def set_accum_dtype(dt):
 def _chunk_losses(cfg, W, gout, h, tgt, msk):
     """CE + KD partial sums for one chunk. h: (B,C,D); tgt/msk: (B,C).
     The logits are the product in the parameters' dtype, then float32,
-    as the reference's ``(h @ W).astype(f32)``."""
-    lg = (h @ W).float()                                 # (B,C,V)
+    as the reference's ``(h @ W).astype(f32)``, placed by the logits'
+    rule where a sharding hook is installed (their rows where the
+    batch's are, not a partial sum of every row)."""
+    lg = constrain(h @ W, "logits").float()              # (B,C,V)
     logz = torch.logsumexp(lg, dim=-1)
     tl = lg.gather(-1, tgt[..., None])[..., 0]
     ce = ((logz - tl) * msk).sum()
@@ -89,8 +92,10 @@ def _lm_loss(cfg, params, batch):
     labels = batch["labels"] if "labels" in batch else batch["tokens"]
     # shift: position t predicts labels[t+1]; last position is masked
     targets = torch.cat([labels[:, 1:], labels.new_zeros((B, 1))], dim=1)
-    mask = (torch.arange(S, device=hidden.device) < S - 1).float() \
-        .expand(B, S)
+    # the labels' rows (a plain arange would be taken as replicated on a
+    # mesh, and so would every gradient it multiplies)
+    mask = torch.cat([torch.ones_like(labels[:, 1:], dtype=torch.float32),
+                      labels.new_zeros((B, 1), dtype=torch.float32)], dim=1)
     gout = batch.get("gout")
 
     C = min(LOSS_CHUNK, S)
@@ -174,20 +179,19 @@ def make_train_step(cfg, grad_accum: int | None = None):
 # Serving steps
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(cfg, seq_len: int, place_cache=None):
+def make_prefill_step(cfg, seq_len: int, init_cache=None):
     """tokens (B, S) or embeds (B, S, D), and enc_out for a
     cross-attention config -> (last-token logits, filled cache of
     ``seq_len``; the SSM cache, and the hybrid's mamba part, do not
-    depend on ``seq_len``).  ``place_cache``: None, or a function that
-    places the empty cache before it is filled (the sharding rules'
-    ``cache_pspecs``, ``launch/dryrun.py``)."""
+    depend on ``seq_len``).  ``init_cache``: None
+    (``kvcache.init_cache``), or a function ``(batch, seq_len, device)``
+    that makes the empty cache (the sharding rules' blocks of each
+    rank, ``launch/dryrun.py``)."""
+    init = init_cache or functools.partial(kvcache.init_cache, cfg)
 
     def prefill_step(params, batch):
         inp = batch["tokens"] if "tokens" in batch else batch["embeds"]
-        cache = kvcache.init_cache(cfg, inp.shape[0], seq_len,
-                                   device=inp.device)
-        if place_cache is not None:
-            cache = place_cache(cache)
+        cache = init(inp.shape[0], seq_len, device=inp.device)
         logits, _, new_cache = forward(cfg, params, batch, cache=cache)
         return logits[:, -1], new_cache
 

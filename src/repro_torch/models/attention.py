@@ -382,8 +382,13 @@ def _tail_cache(k, Sc: int):
         pad = k.new_zeros((k.shape[0], Sc - S) + k.shape[2:])
         return torch.cat([k, pad], dim=1)
     tail = k[:, S - Sc:]
-    # position p lives at slot p % Sc; tail index i is position S-Sc+i
-    return torch.roll(tail, shifts=(S - Sc) % Sc, dims=1)
+    # position p lives at slot p % Sc; tail index i is position S-Sc+i:
+    # the roll by r = (S-Sc) % Sc, as two slices (DTensor has a strategy
+    # for a cat on every torch release, for aten.roll not on 2.11)
+    r = (S - Sc) % Sc
+    if r == 0:
+        return tail
+    return torch.cat([tail[:, Sc - r:], tail[:, :Sc - r]], dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -102,11 +102,12 @@ def _oracle_steps(cfg, total, monkeypatch):
     float64: the oracle the float32 states of both sides are held to."""
     f64 = functools.partial(mamba2.mamba2_forward, dtype=torch.float64)
 
-    def f64_state(cache):
+    def f64_state(batch, seq_len, device=None):
+        cache = kvcache.init_cache(cfg, batch, seq_len, device=device)
         return dict(cache, mamba=dict(cache["mamba"],
                                       state=cache["mamba"]["state"].double()))
 
-    prefill = make_prefill_step(cfg, total, place_cache=f64_state)
+    prefill = make_prefill_step(cfg, total, init_cache=f64_state)
     decode = make_decode_step(cfg)
 
     def run(step, *args):
