@@ -6,9 +6,17 @@
 //
 // Replaces the Pallas kernel _flash_kernel of
 // src/repro/kernels/flash_attention.py (launched by flash_attention_pallas):
-// (BH, S, d) layout, heads flattened into the batch by the caller, f32
-// running max m, sum l and accumulator per query row, p rounded to the
+// f32 running max m, sum l and accumulator per query row, p rounded to the
 // input type before the p.V product, and the final divide by max(l, 1e-30).
+// The Pallas kernel takes (BH, S, d) operands, heads flattened into the
+// batch and K/V repeated to every query head by the caller; this one takes
+// the models' layout as it is: q (batch, S, heads, d), k and v at their
+// own kv heads (query head h reads kv head h / (heads / kv_heads), as the
+// reference's grouped attention does), each operand in its own strides
+// (tensor maps of rank 4, the last dim unit-stride), o written as (batch,
+// S, heads, dv).  MLA's rope key, one for every head of a position, comes
+// from a map of its own (batch, S, rope) as K's last columns.  (BH, S, d)
+// is the case batch = BH, heads = kv_heads = 1.
 // The Pallas grid walks (bh, q-block, kv-block) in order on one core and
 // keeps m, l and acc in VMEM scratch across the kv blocks; here one CTA
 // owns a query tile and loops over the key tiles itself, keeping the state
@@ -84,7 +92,10 @@
 //     L2 (GROUP_BYTES), the heaviest query tiles of a group first: in
 //     plain heaviest-first order, 132 CTAs at once read 132 heads' K
 //     and V (67 MB at qwen3-14b's (160, 1024, 128)), more than L2 holds,
-//     so each query tile read its keys from device memory again.
+//     so each query tile read its keys from device memory again.  The
+//     query heads of one kv head are neighbours in that order and count
+//     its K and V once, so a group of grouped-query heads reads each kv
+//     head's K and V from device memory once, not once a query head.
 //   - MLA (deepseek-v2) attends with q.k 192 wide (nope 128 + rope 64)
 //     and values 128 wide.  Its prefill calls this at (BH 512, S 1024,
 //     d 192, dv 128): 671 MB (0.200 ms at 3.35 TB/s) and 172 GFLOP on
@@ -93,8 +104,9 @@
 //     64-column chunks (128-byte swizzle), 12 k-steps a Q K^T tile.  A
 //     separate O tile would leave room for one 80 KB K/V stage, no
 //     prefetch; O is staged in Q's bytes instead (Layout), which leaves
-//     two.  Every head reads the one rope key of a position, copied into
-//     each head's K by the caller.
+//     two.  Every head reads the one rope key of a position: K's third
+//     chunk comes from the shared key's map, (rope, S, batch), not from
+//     a copy in each head's K.
 // * float32: 3xTF32 on the tensor cores (namespace f32).  One TF32
 //   product keeps ~3 decimal digits, and the float32 smoke configs hold
 //   the card's logits to the CPU's within ~1e-6.  So every product is
@@ -158,6 +170,69 @@
 #include "hopper.cuh"
 
 namespace {
+
+// A launch's operands, as flash_attention_launch takes them: q (batch, s,
+// heads, d), k (batch, s, kv_heads, dk), v (batch, s, kv_heads, dv), the
+// shared key ks (batch, s, d - dk) or none (dk == d), o (batch, s, heads,
+// dv), each with its strides in elements between positions, heads and
+// batch rows (the last dim unit-stride).
+struct Call {
+  const void *q, *k, *v, *ks;
+  void* o;
+  const int64_t* strides;  // (row, head, batch) of q, k, v, ks, o
+  int64_t batch, heads, kv_heads, s, d, dk, dv, window;
+};
+enum Operand { OP_Q, OP_K, OP_V, OP_KS, OP_O };
+
+// What a CTA needs to find its operands: the (batch row, query head)
+// pairs, the query heads a batch row and a kv head, and K's own columns
+// (past them, K's columns come from the shared key's map; d: none).
+struct Heads {
+  int n_bh, heads, g, dk;
+};
+// (batch row, query head) pair bh: its batch row, query head and kv head
+struct Head {
+  int batch, head, kv_head;
+  __device__ __forceinline__ Head(int bh, const Heads& hd) {
+    batch = bh / hd.heads;
+    head = bh - batch * hd.heads;
+    kv_head = head / hd.g;
+  }
+};
+
+// Operand `op` of a call as a tensor map: (cols, s, heads, batch), or
+// (cols, s, batch) for the shared key, in its own strides; boxes of
+// box_cols x rows; rows past s and columns past cols read as zeros and
+// are not written.  TMA takes strides that are multiples of 16 bytes
+// (the wrapper checks them).
+int encode(CUtensorMap* map, const Call& c, Operand op, int64_t cols,
+           CUtensorMapDataType type, int elt, int box_cols, int rows,
+           CUtensorMapSwizzle swizzle) {
+  const hopper::EncodeTiled fn = hopper::encode_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const void* ptrs[5] = {c.q, c.k, c.v, c.ks, c.o};
+  const int64_t* st = c.strides + 3 * op;
+  const bool shared = op == OP_KS;
+  const int64_t heads = op == OP_Q || op == OP_O ? c.heads : c.kv_heads;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)c.s,
+                              (cuuint64_t)(shared ? c.batch : heads),
+                              (cuuint64_t)c.batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(st[0] * elt),
+                                 (cuuint64_t)(st[shared ? 2 : 1] * elt),
+                                 (cuuint64_t)(st[2] * elt)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, type, shared ? 3 : 4, const_cast<void*>(ptrs[op]), dims,
+         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+Heads heads_of(const Call& c) {
+  return {(int)(c.batch * c.heads), (int)c.heads,
+          (int)(c.heads / c.kv_heads), (int)c.dk};
+}
 
 // ---------------------------------------------------------------------------
 // float32: 3xTF32 on the tensor cores (wgmma + TMA)
@@ -392,16 +467,17 @@ __device__ __forceinline__ void softmax(float (&sc)[BK / 2], float (&m)[2],
   }
 }
 
-// What both kernels share: a CTA's query tile (heaviest first), its key
-// tiles (from the first that the first row's window reaches), and the
-// TMA loads of Q and of key tile i into its stage of the ring.
-struct Tiles {
-  int bh, q0, t_first, n_tiles;
-  __device__ __forceinline__ Tiles(int s, int window, int n_bh, int bk,
-                                   int rows) {
+// What both kernels share: a CTA's (batch row, query head) and query tile
+// (heaviest first), its key tiles (from the first that the first row's
+// window reaches), and the TMA loads of Q and of key tile i into its stage
+// of the ring.
+struct Tiles : Head {
+  int q0, t_first, n_tiles, dk;
+  __device__ __forceinline__ Tiles(int s, int window, const Heads& hd, int bk,
+                                   int rows)
+      : Head((int)blockIdx.x % hd.n_bh, hd), dk(hd.dk) {
     const int n_qt = (s + rows - 1) / rows;
-    bh = (int)blockIdx.x % n_bh;
-    q0 = (n_qt - 1 - (int)blockIdx.x / n_bh) * rows;
+    q0 = (n_qt - 1 - (int)blockIdx.x / hd.n_bh) * rows;
     t_first = (window > 0 ? max(0, q0 - window + 1) : 0) / bk;
     n_tiles = (min(q0 + rows, s) - 1) / bk - t_first + 1;
   }
@@ -422,12 +498,14 @@ __device__ __forceinline__ void load_q(uint8_t* smem, uint64_t* bar,
   for (int c = 0; c < L::DP / 32; ++c)
     for (int h = 0; h < L::QROWS / BQ; ++h)
       tma_load(smem + L::QB + c * L::QROWS * 128 + h * BQ * 128, tq, bar,
-               32 * c, w.q0 + h * BQ, w.bh);
+               32 * c, w.q0 + h * BQ, w.head, w.batch);
 }
 
+// K's chunks past its own dk columns from the shared key's map
 template <typename L, int DVP>
 __device__ __forceinline__ void load_tile(uint8_t* smem, uint64_t* full,
                                           const CUtensorMap* tk,
+                                          const CUtensorMap* tks,
                                           const CUtensorMap* tv,
                                           const Tiles& w, int i,
                                           int stages) {
@@ -435,10 +513,15 @@ __device__ __forceinline__ void load_tile(uint8_t* smem, uint64_t* full,
   uint8_t* st = stage_of<L>(smem, i, stages);
   const int k0 = (w.t_first + i) * L::BK;
   bar_expect_tx(bar, L::STAGE);
-  for (int c = 0; c < L::DP / 32; ++c)
-    tma_load(st + c * L::BK * 128, tk, bar, 32 * c, k0, w.bh);
+  for (int c = 0; c < L::DP / 32; ++c) {
+    if (32 * c < w.dk)
+      tma_load(st + c * L::BK * 128, tk, bar, 32 * c, k0, w.kv_head, w.batch);
+    else
+      tma_load(st + c * L::BK * 128, tks, bar, 32 * c - w.dk, k0, w.batch);
+  }
   for (int c = 0; c < DVP / 32; ++c)
-    tma_load(st + L::K_BYTES + c * L::BK * 128, tv, bar, 32 * c, k0, w.bh);
+    tma_load(st + L::K_BYTES + c * L::BK * 128, tv, bar, 32 * c, k0,
+             w.kv_head, w.batch);
 }
 
 // The products and the softmax of a key tile for a warpgroup of 64 query
@@ -491,10 +574,16 @@ __device__ __forceinline__ void key_tile(
   pin(ps);
 }
 
+// o's strides in elements between positions, heads and batch rows
+struct OStrides {
+  int64_t row, head, batch;
+};
+
 // o = acc / max(l, 1e-30): the rows below s, the columns below dv
 template <int DVP>
-__device__ __forceinline__ void store_o(float* o, const float (&acc)[DVP / 2],
-                                        const float (&l)[2], int bh,
+__device__ __forceinline__ void store_o(float* o, const OStrides& os,
+                                        const float (&acc)[DVP / 2],
+                                        const float (&l)[2], const Tiles& w,
                                         int row0, int col0, int s, int dv) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -504,7 +593,8 @@ __device__ __forceinline__ void store_o(float* o, const float (&acc)[DVP / 2],
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int row = row0 + 8 * h;
     if (row >= s) continue;
-    float* orow = o + ((size_t)bh * s + row) * dv + col0;
+    float* orow = o + w.batch * os.batch + w.head * os.head +
+                  row * os.row + col0;
 #pragma unroll
     for (int j = 0; j < DVP / 8; ++j)
       if (8 * j < dv)
@@ -526,23 +616,24 @@ template <int D, int DVP>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_f32(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tks,
                   const __grid_constant__ CUtensorMap tv,
-                  float* __restrict__ o, int s, int dv, int window,
-                  float scale_log2, int n_bh, int stages) {
+                  float* __restrict__ o, OStrides os, int s, int dv,
+                  int window, float scale_log2, Heads hd, int stages) {
   using L = Layout<D, DVP, 0>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* full = q_full + 1;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const Tiles w(s, window, n_bh, L::BK, BQ);
+  const Tiles w(s, window, hd, L::BK, BQ);
   if (tid == 0) {
     bar_init(q_full, 1);
     for (int i = 0; i < stages; ++i) bar_init(full + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     load_q<L>(smem, q_full, &tq, w);
     for (int i = 0; i < stages && i < w.n_tiles; ++i)
-      load_tile<L, DVP>(smem, full, &tk, &tv, w, i, stages);
+      load_tile<L, DVP>(smem, full, &tk, &tks, &tv, w, i, stages);
   }
   __syncthreads();
 
@@ -578,7 +669,8 @@ __global__ void __launch_bounds__(THREADS)
           F32_PROBE(3);
           __syncthreads();  // V^T is written; K_i and V_i are consumed
           if (tid == 0 && i + stages < w.n_tiles)
-            load_tile<L, DVP>(smem, full, &tk, &tv, w, i + stages, stages);
+            load_tile<L, DVP>(smem, full, &tk, &tks, &tv, w, i + stages,
+                              stages);
           __syncwarp();
           F32_PROBE(4);
         },
@@ -597,7 +689,7 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // Ks is written; P_i V_i is done: V^T is free
     F32_PROBE(8);
   }
-  store_o<DVP>(o, acc, l, w.bh, row0, col0, s, dv);
+  store_o<DVP>(o, os, acc, l, w, row0, col0, s, dv);
   F32_PROBE(9);
   F32_PROBE_END(0, tid == 32)
 }
@@ -621,9 +713,10 @@ template <int D, int DVP, int MULT>
 __global__ void __launch_bounds__((MULT + 1) * THREADS, 1)
     flash_fwd_f32_ws(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tks,
                      const __grid_constant__ CUtensorMap tv,
-                     float* __restrict__ o, int s, int dv, int window,
-                     float scale_log2, int n_bh, int stages) {
+                     float* __restrict__ o, OStrides os, int s, int dv,
+                     int window, float scale_log2, Heads hd, int stages) {
   using L = Layout<D, DVP, MULT>;
   constexpr int BUFS = L::BUFS;
   extern __shared__ uint8_t smem_raw[];
@@ -637,7 +730,7 @@ __global__ void __launch_bounds__((MULT + 1) * THREADS, 1)
   // 0, 1: the multipliers; 2: the splitter (read from lane 0: a
   // warp-uniform branch)
   const int wg = __shfl_sync(FULL, (int)threadIdx.x >> 7, 0);
-  const Tiles w(s, window, n_bh, L::BK, L::QROWS);
+  const Tiles w(s, window, hd, L::BK, L::QROWS);
   if (threadIdx.x == 0) {
     bar_init(q_full, 1);
     for (int i = 0; i < stages; ++i) {
@@ -657,7 +750,7 @@ __global__ void __launch_bounds__((MULT + 1) * THREADS, 1)
     if (tid == 0) {
       load_q<L>(smem, q_full, &tq, w);
       for (int i = 0; i < stages && i < w.n_tiles; ++i)
-        load_tile<L, DVP>(smem, full, &tk, &tv, w, i, stages);
+        load_tile<L, DVP>(smem, full, &tk, &tks, &tv, w, i, stages);
     }
     bar_wait(q_full, 0);
     split_tile<L::Q_BYTES>(smem + L::QB, smem + L::QS, tid);
@@ -728,7 +821,8 @@ __global__ void __launch_bounds__((MULT + 1) * THREADS, 1)
           if (tid == 0 && atomicAdd(taken + i % stages, 1) == MULT - 1) {
             atomicExch(taken + i % stages, 0);
             if (i + stages < w.n_tiles)
-              load_tile<L, DVP>(smem, full, &tk, &tv, w, i + stages, stages);
+              load_tile<L, DVP>(smem, full, &tk, &tks, &tv, w, i + stages,
+                                stages);
           }
           __syncwarp();
           F32_PROBE(4);
@@ -745,29 +839,17 @@ __global__ void __launch_bounds__((MULT + 1) * THREADS, 1)
     if (lane == 0) bar_arrive(freed + b);
     __syncwarp();
   }
-  store_o<DVP>(o, acc, l, w.bh, row0, col0, s, dv);
+  store_o<DVP>(o, os, acc, l, w, row0, col0, s, dv);
   F32_PROBE(7);
   F32_PROBE_END(wg == 0 ? 1 : 3, tid == 32)
 }
 
-// The (bh, s, cols) float32 tensor at ptr, in boxes of [rows][32]
-// (128-byte swizzle); rows past s and columns past cols read as zeros.
-int encode(CUtensorMap* map, const void* ptr, int64_t cols, int64_t s,
-           int64_t bh, int rows) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)s,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4,
-                                 (cuuint64_t)s * cols * 4};
-  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+// Operand `op` as a float32 tensor map in boxes of [rows][32] (128-byte
+// swizzle)
+int encode_f32(CUtensorMap* map, const Call& c, Operand op, int64_t cols,
+               int rows) {
+  return encode(map, c, op, cols, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 32,
+                rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Head dim D, value dims up to DVP (a multiple of 32; V's columns past dv
@@ -775,14 +857,15 @@ int encode(CUtensorMap* map, const void* ptr, int64_t cols, int64_t s,
 // query tile, the ring as deep as the key tiles need and the layout
 // allows.
 template <int D, int DVP, int MULT>
-int launch_k(const void* q, const void* k, const void* v, void* o,
-             int64_t bh, int64_t s, int64_t dv, int64_t window,
-             cudaStream_t stream) {
+int launch_k(const Call& c, cudaStream_t stream) {
   using L = Layout<D, DVP, MULT>;
-  CUtensorMap tq, tk, tv;
-  int err = encode(&tq, q, D, s, bh, BQ);
-  if (err == 0) err = encode(&tk, k, D, s, bh, L::BK);
-  if (err == 0) err = encode(&tv, v, dv, s, bh, L::BK);
+  CUtensorMap tq, tk, tks, tv;
+  int err = encode_f32(&tq, c, OP_Q, D, BQ);
+  if (err == 0) err = encode_f32(&tk, c, OP_K, c.dk, L::BK);
+  if (err == 0)
+    err = c.ks ? encode_f32(&tks, c, OP_KS, c.d - c.dk, L::BK)
+               : encode_f32(&tks, c, OP_K, c.dk, L::BK);  // never read
+  if (err == 0) err = encode_f32(&tv, c, OP_V, c.dv, L::BK);
   if (err != 0) return err;
   decltype(&flash_fwd_f32<D, DVP>) kernel;
   if constexpr (MULT > 0) kernel = flash_fwd_f32_ws<D, DVP, MULT>;
@@ -798,15 +881,18 @@ int launch_k(const void* q, const void* k, const void* v, void* o,
     if (e != cudaSuccess) return (int)e;
     ready[dev] = true;
   }
-  const int64_t n_kt = (s + L::BK - 1) / L::BK;
-  const int64_t n_qt = (s + L::QROWS - 1) / L::QROWS;
+  const int64_t n_kt = (c.s + L::BK - 1) / L::BK;
+  const int64_t n_qt = (c.s + L::QROWS - 1) / L::QROWS;
   const int stages = (int)std::min<int64_t>(L::MAX_ST, n_kt);
   // a window of at least s masks nothing
-  const int win = window > 0 && window < s ? (int)window : -1;
+  const int win = c.window > 0 && c.window < c.s ? (int)c.window : -1;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  kernel<<<(unsigned)(bh * n_qt), (MULT + 1) * THREADS, L::smem(stages),
-           stream>>>(tq, tk, tv, (float*)o, (int)s, (int)dv, win,
-                     scale_log2, (int)bh, stages);
+  const int64_t* so = c.strides + 3 * OP_O;
+  const OStrides os{so[0], so[1], so[2]};
+  const Heads hd = heads_of(c);
+  kernel<<<(unsigned)(hd.n_bh * n_qt), (MULT + 1) * THREADS, L::smem(stages),
+           stream>>>(tq, tk, tks, tv, (float*)c.o, os, (int)c.s, (int)c.dv,
+                     win, scale_log2, hd, stages);
   return (int)cudaGetLastError();
 }
 
@@ -816,32 +902,26 @@ int launch_k(const void* q, const void* k, const void* v, void* o,
 // two; rows of one key tile, and the other pairs, the one-warpgroup
 // kernel (more CTAs an SM, no hand-off).
 template <int D, int DVP>
-int launch_t(const void* q, const void* k, const void* v, void* o,
-             int64_t bh, int64_t s, int64_t dv, int64_t window,
-             cudaStream_t st) {
+int launch_t(const Call& c, cudaStream_t st) {
   if constexpr (D <= 64 && DVP <= 64) {
     constexpr int BK = Layout<D, DVP, 1>::BK;
     static_assert(BK == Layout<D, DVP, 2>::BK, "the split kernels' tiles");
-    const int64_t n_kt = (s + BK - 1) / BK;
-    if (n_kt == 2)
-      return launch_k<D, DVP, 1>(q, k, v, o, bh, s, dv, window, st);
-    if (n_kt > 2)
-      return launch_k<D, DVP, 2>(q, k, v, o, bh, s, dv, window, st);
+    const int64_t n_kt = (c.s + BK - 1) / BK;
+    if (n_kt == 2) return launch_k<D, DVP, 1>(c, st);
+    if (n_kt > 2) return launch_k<D, DVP, 2>(c, st);
   }
-  return launch_k<D, DVP, 0>(q, k, v, o, bh, s, dv, window, st);
+  return launch_k<D, DVP, 0>(c, st);
 }
 
 // dv 16 and 32 share the 32-column V tile, 80 takes 96
 template <int D>
-int launch_dv(const void* q, const void* k, const void* v, void* o,
-              int64_t bh, int64_t s, int64_t dv, int64_t window,
-              cudaStream_t st) {
-  switch (dv) {
+int launch_dv(const Call& c, cudaStream_t st) {
+  switch (c.dv) {
     case 16:
-    case 32: return launch_t<D, 32>(q, k, v, o, bh, s, dv, window, st);
-    case 64: return launch_t<D, 64>(q, k, v, o, bh, s, dv, window, st);
-    case 80: return launch_t<D, 96>(q, k, v, o, bh, s, dv, window, st);
-    case 128: return launch_t<D, 128>(q, k, v, o, bh, s, dv, window, st);
+    case 32: return launch_t<D, 32>(c, st);
+    case 64: return launch_t<D, 64>(c, st);
+    case 80: return launch_t<D, 96>(c, st);
+    case 128: return launch_t<D, 128>(c, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -849,30 +929,26 @@ int launch_dv(const void* q, const void* k, const void* v, void* o,
 // Head dims 96 (phi3-mini) and 120 (h2o-danube3) take dv == d only; MLA's
 // (deepseek-v2) q.k widths take one value width each: d 48 (its smoke
 // config: nope 32 + rope 16) dv 32, and d 192 (nope 128 + rope 64) dv 128.
-int launch_d(const void* q, const void* k, const void* v, void* o,
-             int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
-             cudaStream_t st) {
-  if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) != 0)
-    return (int)cudaErrorMisalignedAddress;  // TMA reads 16-byte aligned
-  switch (d) {
-    case 16: return launch_dv<16>(q, k, v, o, bh, s, dv, window, st);
-    case 32: return launch_dv<32>(q, k, v, o, bh, s, dv, window, st);
+// A shared key starts at a 32-column chunk of K.
+int launch_d(const Call& c, cudaStream_t st) {
+  if (c.dk % 32 != 0 && c.ks != nullptr) return (int)cudaErrorInvalidValue;
+  switch (c.d) {
+    case 16: return launch_dv<16>(c, st);
+    case 32: return launch_dv<32>(c, st);
     case 48:
-      if (dv == 32) return launch_t<48, 32>(q, k, v, o, bh, s, dv, window, st);
+      if (c.dv == 32) return launch_t<48, 32>(c, st);
       break;
-    case 64: return launch_dv<64>(q, k, v, o, bh, s, dv, window, st);
-    case 80: return launch_dv<80>(q, k, v, o, bh, s, dv, window, st);
+    case 64: return launch_dv<64>(c, st);
+    case 80: return launch_dv<80>(c, st);
     case 96:
-      if (dv == 96) return launch_t<96, 96>(q, k, v, o, bh, s, dv, window, st);
+      if (c.dv == 96) return launch_t<96, 96>(c, st);
       break;
     case 120:
-      if (dv == 120)
-        return launch_t<120, 128>(q, k, v, o, bh, s, dv, window, st);
+      if (c.dv == 120) return launch_t<120, 128>(c, st);
       break;
-    case 128: return launch_dv<128>(q, k, v, o, bh, s, dv, window, st);
+    case 128: return launch_dv<128>(c, st);
     case 192:
-      if (dv == 128)
-        return launch_t<192, 128>(q, k, v, o, bh, s, dv, window, st);
+      if (c.dv == 128) return launch_t<192, 128>(c, st);
       break;
   }
   return (int)cudaErrorInvalidValue;
@@ -1276,21 +1352,27 @@ struct Ring {
 // heaviest-first order, 132 CTAs at once read 132 heads' K and V (67 MB
 // at qwen3-14b's (160, 1024, 128)), more than L2 holds.  A CTA walks the
 // slots blockIdx.x, + gridDim.x, ...: one a CTA unpaired; paired, one
-// CTA an SM walks its share of the slots, all of one cost.
+// CTA an SM walks its share of the slots, all of one cost.  A slot's
+// (batch row, query head) pair is its bh = batch * heads + head, so the
+// query heads of a kv head are neighbours.
 template <bool PAIRED>
 struct Work {
-  int bh, p, n_qt;
+  int batch, head, kv_head, p, n_qt;
   __device__ __forceinline__ static int slots(int s, int n_bh) {
     const int n_qt = (s + BQ - 1) / BQ;
     return n_bh * (PAIRED ? (n_qt + 1) / 2 : n_qt);
   }
-  __device__ __forceinline__ Work(int id, int s, int n_bh, int group) {
+  __device__ __forceinline__ Work(int id, int s, const Heads& hd,
+                                  int group) {
     n_qt = (s + BQ - 1) / BQ;
     const int per_head = PAIRED ? (n_qt + 1) / 2 : n_qt;
     const int g0 = id / (group * per_head) * group;
-    const int in_group = min(group, n_bh - g0);
+    const int in_group = min(group, hd.n_bh - g0);
     const int i = id - g0 * per_head;
-    bh = g0 + i % in_group;
+    const Head at(g0 + i % in_group, hd);
+    batch = at.batch;
+    head = at.head;
+    kv_head = at.kv_head;
     p = PAIRED ? per_head - 1 - i / in_group : i / in_group;
   }
   __device__ __forceinline__ int tiles() const {
@@ -1336,16 +1418,18 @@ template <int D, int DV, bool PAIRED>
 __device__ __forceinline__ void produce(uint8_t* smem, Barriers& b,
                                         const CUtensorMap* tq,
                                         const CUtensorMap* tk,
+                                        const CUtensorMap* tks,
                                         const CUtensorMap* tv, int s,
-                                        int window, int n_bh, int group) {
+                                        int window, const Heads& hd,
+                                        int group) {
   using L = Layout<D, DV>;
   constexpr int CQ = L::CQ, CV = L::CV, Q_BUFS = PAIRED ? 2 : 1;
   uint8_t* ring = smem + L::ring_off(Q_BUFS);
   Ring<L::stages(Q_BUFS)> kr, vr;
   Ring<Q_BUFS> qr;  // the Q buffer of the next query tile
-  for (int id = blockIdx.x; id < Work<PAIRED>::slots(s, n_bh);
+  for (int id = blockIdx.x; id < Work<PAIRED>::slots(s, hd.n_bh);
        id += gridDim.x) {
-    const Work<PAIRED> w(id, s, n_bh, group);
+    const Work<PAIRED> w(id, s, hd, group);
     for (int n = 0; n < w.tiles(); ++n) {
       const int q0 = w.q0(n), t_first = first_tile(q0, window);
       const int n_tiles = tile_count(q0, s, window);
@@ -1353,9 +1437,16 @@ __device__ __forceinline__ void produce(uint8_t* smem, Barriers& b,
         if (i < n_tiles) {
           wait_empty(&b.k_empty[kr.st], kr.ph ^ 1);
           bar_expect_tx(&b.k_full[kr.st], L::K_BYTES);
-          for (int c = 0; c < D / CQ; ++c)
-            tma_load(ring + kr.st * L::STAGE_BYTES + c * BK * CQ * 2, tk,
-                     &b.k_full[kr.st], c * CQ, (t_first + i) * BK, w.bh);
+          // K's chunks past its own dk columns: the shared key's
+          for (int c = 0; c < D / CQ; ++c) {
+            uint8_t* dst = ring + kr.st * L::STAGE_BYTES + c * BK * CQ * 2;
+            if (c * CQ < hd.dk)
+              tma_load(dst, tk, &b.k_full[kr.st], c * CQ, (t_first + i) * BK,
+                       w.kv_head, w.batch);
+            else
+              tma_load(dst, tks, &b.k_full[kr.st], c * CQ - hd.dk,
+                       (t_first + i) * BK, w.batch);
+          }
           kr.next();
         }
         if (i == 0) {
@@ -1363,7 +1454,7 @@ __device__ __forceinline__ void produce(uint8_t* smem, Barriers& b,
           bar_expect_tx(&b.q_full[qr.st], L::Q_BYTES);
           for (int c = 0; c < D / CQ; ++c)
             tma_load(smem + L::Q_OFF + qr.st * L::Q_BYTES + c * BQ * CQ * 2,
-                     tq, &b.q_full[qr.st], c * CQ, q0, w.bh);
+                     tq, &b.q_full[qr.st], c * CQ, q0, w.head, w.batch);
           qr.next();
         } else {
           wait_empty(&b.v_empty[vr.st], vr.ph ^ 1);
@@ -1372,7 +1463,7 @@ __device__ __forceinline__ void produce(uint8_t* smem, Barriers& b,
             tma_load(ring + vr.st * L::STAGE_BYTES + L::K_BYTES +
                          c * BK * CV * 2,
                      tv, &b.v_full[vr.st], c * CV, (t_first + i - 1) * BK,
-                     w.bh);
+                     w.kv_head, w.batch);
           vr.next();
         }
       }
@@ -1395,7 +1486,7 @@ template <int D, int DV, bool PAIRED>
 __device__ __forceinline__ void consume(uint8_t* smem, Barriers& b,
                                         const CUtensorMap* to, int wg, int s,
                                         int window, float scale_log2,
-                                        int n_bh, int group) {
+                                        const Heads& hd, int group) {
   using L = Layout<D, DV>;
   constexpr int CQ = L::CQ, CV = L::CV, Q_BUFS = PAIRED ? 2 : 1;
   // at dv 128 a timed-out wait traps through a call (hopper.cuh)
@@ -1416,9 +1507,9 @@ __device__ __forceinline__ void consume(uint8_t* smem, Barriers& b,
 
   Ring<L::stages(Q_BUFS)> cur;  // the K (and V) tile of the next Q K^T
   Ring<Q_BUFS> qr;                // the Q buffer of the next query tile
-  for (int id = blockIdx.x; id < Work<PAIRED>::slots(s, n_bh);
+  for (int id = blockIdx.x; id < Work<PAIRED>::slots(s, hd.n_bh);
        id += gridDim.x) {
-    const Work<PAIRED> w(id, s, n_bh, group);
+    const Work<PAIRED> w(id, s, hd, group);
     for (int n = 0; n < w.tiles(); ++n) {
       const int q0 = w.q0(n), t_first = first_tile(q0, window);
       const int n_tiles = tile_count(q0, s, window);
@@ -1528,7 +1619,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, Barriers& b,
       if ((threadIdx.x & 127) == 0) {
         for (int c = 0; c < DV / CV; ++c)
           tma_store(to, so + c * BQ * CV * 2 + wg * 64 * CV * 2, c * CV, r_wg,
-                    w.bh);
+                    w.head, w.batch);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
         bar_arrive(&b.q_empty[qb]);  // a later query tile may take them
@@ -1547,9 +1638,10 @@ template <int D, int DV, bool PAIRED>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tks,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap to, int s, int window,
-                 float scale_log2, int n_bh, int group) {
+                 float scale_log2, Heads hd, int group) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   Barriers& b = *reinterpret_cast<Barriers*>(smem);
@@ -1575,44 +1667,34 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == CONSUMERS)
-      produce<D, DV, PAIRED>(smem, b, &tq, &tk, &tv, s, window, n_bh,
+      produce<D, DV, PAIRED>(smem, b, &tq, &tk, &tks, &tv, s, window, hd,
                              group);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    consume<D, DV, PAIRED>(smem, b, &to, wg, s, window, scale_log2, n_bh,
+    consume<D, DV, PAIRED>(smem, b, &to, wg, s, window, scale_log2, hd,
                            group);
   }
 }
 
-// The (bh, s, cols) bf16 tensor at ptr, in boxes of `rows` x one swizzle
-// chunk of a tile `width` columns wide (width >= cols); rows past s and
-// columns past cols read as zeros and are not written.
-int encode(CUtensorMap* map, const void* ptr, int cols, int width, int64_t s,
-           int64_t bh, int rows) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
+// Operand `op` as a bf16 tensor map in boxes of `rows` x one swizzle
+// chunk of a tile `width` columns wide (width >= cols)
+int encode_bf16(CUtensorMap* map, const Call& c, Operand op, int64_t cols,
+                int width, int rows) {
   const int cw = chunk_cols(width);
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)s,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)s * cols * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)cw, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      cw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode(map, c, op, cols, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, cw,
+                rows,
+                cw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // One query tile a CTA (PAIRED false) or two: the kernel for the
 // layout, its shared memory set once a device, launched on the grid.
 template <int D, int DV, bool PAIRED>
 int launch_grid(const CUtensorMap& tq, const CUtensorMap& tk,
-                const CUtensorMap& tv, const CUtensorMap& to, int64_t n_cta,
-                int64_t s, int win, float scale_log2, int64_t bh,
-                int64_t group, cudaStream_t stream) {
+                const CUtensorMap& tks, const CUtensorMap& tv,
+                const CUtensorMap& to, int64_t n_cta, int64_t s, int win,
+                float scale_log2, const Heads& hd, int64_t group,
+                cudaStream_t stream) {
   constexpr int SMEM = Layout<D, DV>::smem(PAIRED ? 2 : 1);
   static bool ready[64] = {};
   int dev = 0;
@@ -1626,31 +1708,35 @@ int launch_grid(const CUtensorMap& tq, const CUtensorMap& tk,
     ready[dev] = true;
   }
   flash_fwd_tc<D, DV, PAIRED><<<(unsigned)n_cta, THREADS, SMEM, stream>>>(
-      tq, tk, tv, to, (int)s, win, scale_log2, (int)bh, (int)group);
+      tq, tk, tks, tv, to, (int)s, win, scale_log2, hd, (int)group);
   return (int)cudaGetLastError();
 }
 
 // Tiles D and DV wide for head dims d <= D and dv <= DV: the columns past
 // d and dv load as zeros (adding nothing to q.k or to p.v) and the bulk
-// store drops them.
+// store drops them.  A shared key starts at a chunk of K.
 template <int D, int DV>
-int launch_t(const void* q, const void* k, const void* v, void* o,
-             int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
-             cudaStream_t stream) {
+int launch_t(const Call& c, cudaStream_t stream) {
   using L = Layout<D, DV>;
-  CUtensorMap tq, tk, tv, to;
-  int err = encode(&tq, q, (int)d, D, s, bh, BQ);
-  if (err == 0) err = encode(&tk, k, (int)d, D, s, bh, BK);
-  if (err == 0) err = encode(&tv, v, (int)dv, DV, s, bh, BK);
-  if (err == 0) err = encode(&to, o, (int)dv, DV, s, bh, 64);
+  if (c.ks != nullptr && c.dk % L::CQ != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tks, tv, to;
+  int err = encode_bf16(&tq, c, OP_Q, c.d, D, BQ);
+  if (err == 0) err = encode_bf16(&tk, c, OP_K, c.dk, D, BK);
+  if (err == 0)
+    err = c.ks ? encode_bf16(&tks, c, OP_KS, c.d - c.dk, D, BK)
+               : encode_bf16(&tks, c, OP_K, c.dk, D, BK);  // never read
+  if (err == 0) err = encode_bf16(&tv, c, OP_V, c.dv, DV, BK);
+  if (err == 0) err = encode_bf16(&to, c, OP_O, c.dv, DV, 64);
   if (err != 0) return err;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
+  const Heads hd = heads_of(c);
+  const int64_t s = c.s, bh = hd.n_bh;
   // a window of at least s masks nothing
-  const int win = window > 0 && window < s ? (int)window : -1;
+  const int win = c.window > 0 && c.window < s ? (int)c.window : -1;
   // Pairs of query tiles, one CTA an SM, where the layout holds two Q
   // buffers and the call is causal (every pair walks n_qt + 1 key tiles;
   // under a window pairs differ), unless the pairs walk over 5% more key
@@ -1664,59 +1750,55 @@ int launch_t(const void* q, const void* k, const void* v, void* o,
   const int64_t single_tiles = (bh * n_qt * (n_qt + 1) / 2 + sms - 1) / sms;
   const bool paired =
       L::PAIRS && win < 0 && pair_tiles * 20 <= single_tiles * 21;
-  // the heads whose K and V (s * (d + dv) bf16 each) fit in GROUP_BYTES
-  const int64_t group = std::max<int64_t>(
-      1, std::min<int64_t>(bh, GROUP_BYTES / (s * (d + dv) * 2)));
+  // the query heads of the kv heads whose K and V (s * (d + dv) bf16
+  // each) fit in GROUP_BYTES
+  const int64_t group = std::min<int64_t>(
+      bh, std::max<int64_t>(1, GROUP_BYTES / (s * (c.d + c.dv) * 2)) * hd.g);
   // the scale of the real head dim, not of the tile
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)c.d));
   if constexpr (L::PAIRS) {   // one CTA an SM walks its share of pairs
     if (paired)
-      return launch_grid<D, DV, true>(tq, tk, tv, to,
+      return launch_grid<D, DV, true>(tq, tk, tks, tv, to,
                                       std::min<int64_t>(n_pairs, sms), s,
-                                      win, scale_log2, bh, group, stream);
+                                      win, scale_log2, hd, group, stream);
   }
-  return launch_grid<D, DV, false>(tq, tk, tv, to, bh * n_qt, s, win,
-                                   scale_log2, bh, group, stream);
+  return launch_grid<D, DV, false>(tq, tk, tks, tv, to, bh * n_qt, s, win,
+                                   scale_log2, hd, group, stream);
 }
 
 // Head dims 80, 96 and 120 run in the 128-column tile (two 64-column
 // chunks, 128-byte swizzle), their columns d-127 zero-filled by TMA: 1.6x,
 // 1.33x and 1.07x the products of an exact tile, and no new kernel
-// instantiation.  The tensor maps' row strides, 160, 192 and 240 bytes,
-// are multiples of 16, as TMA requires.
+// instantiation.  The tensor maps' row strides, 160, 192 and 240 bytes
+// in a contiguous (BH, S, d) operand, are multiples of 16, as TMA
+// requires.
 template <int D>
-int launch_dv(const void* q, const void* k, const void* v, void* o,
-              int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
-              cudaStream_t st) {
-  switch (dv) {
-    case 32: return launch_t<D, 32>(q, k, v, o, bh, s, d, dv, window, st);
-    case 64: return launch_t<D, 64>(q, k, v, o, bh, s, d, dv, window, st);
+int launch_dv(const Call& c, cudaStream_t st) {
+  switch (c.dv) {
+    case 32: return launch_t<D, 32>(c, st);
+    case 64: return launch_t<D, 64>(c, st);
     case 80:
     case 96:
     case 120:
-    case 128: return launch_t<D, 128>(q, k, v, o, bh, s, d, dv, window, st);
+    case 128: return launch_t<D, 128>(c, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // MLA's (192, 128) (deepseek-v2) is its own instantiation: Q and K in
 // three 64-column chunks, 12 k-steps of Q K^T, 384-byte tensor-map rows
-// (a multiple of 16, as TMA requires), O staged in Q's bytes (Layout).
-int launch_d(const void* q, const void* k, const void* v, void* o,
-             int64_t bh, int64_t s, int64_t d, int64_t dv, int64_t window,
-             cudaStream_t st) {
-  if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) != 0)
-    return (int)cudaErrorMisalignedAddress;  // TMA reads 16-byte aligned
-  switch (d) {
-    case 32: return launch_dv<32>(q, k, v, o, bh, s, d, dv, window, st);
-    case 64: return launch_dv<64>(q, k, v, o, bh, s, d, dv, window, st);
+// in a contiguous (BH, S, d) operand (a multiple of 16, as TMA
+// requires), O staged in Q's bytes (Layout).
+int launch_d(const Call& c, cudaStream_t st) {
+  switch (c.d) {
+    case 32: return launch_dv<32>(c, st);
+    case 64: return launch_dv<64>(c, st);
     case 80:
     case 96:
     case 120:
-    case 128: return launch_dv<128>(q, k, v, o, bh, s, d, dv, window, st);
+    case 128: return launch_dv<128>(c, st);
     case 192:
-      if (dv == 128)
-        return launch_t<192, 128>(q, k, v, o, bh, s, d, dv, window, st);
+      if (c.dv == 128) return launch_t<192, 128>(c, st);
       break;
   }
   return (int)cudaErrorInvalidValue;
@@ -1802,19 +1884,32 @@ extern "C" int64_t flash_attention_f32_layout(int64_t d, int64_t dv,
   return 0;
 }
 
-// q, k: (bh, s, d); v: (bh, s, dv); o: (bh, s, dv), all contiguous and
-// 16-byte aligned, of one type (dtype 0: float32, 3xTF32; 1: bfloat16),
-// both on the tensor cores.  window <= 0: none.  Returns
-// cudaGetLastError() (or the error of the attribute call, of the
-// tensor-map encoding, or of a misaligned operand).
+// q (batch, s, heads, d), k (batch, s, kv_heads, dk), v (batch, s,
+// kv_heads, dv), ks (batch, s, d - dk) or null (dk == d), o (batch, s,
+// heads, dv), each 16-byte aligned with a unit last stride and its
+// strides (row, head, batch of q, k, v, ks, o; 15 values, in elements) in
+// `strides`, multiples of 16 bytes; of one type (dtype 0: float32,
+// 3xTF32; 1: bfloat16), both on the tensor cores; heads a multiple of
+// kv_heads.  window <= 0: none.  Returns cudaGetLastError() (or the error
+// of the attribute call, of the tensor-map encoding, or of an operand it
+// does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int64_t bh,
-                                      int64_t s, int64_t d, int64_t dv,
-                                      int64_t window, int64_t dtype,
-                                      void* stream) {
-  if (bh <= 0 || s <= 0) return 0;
+                                      const void* v, const void* ks,
+                                      void* o, const int64_t* strides,
+                                      int64_t batch, int64_t heads,
+                                      int64_t kv_heads, int64_t s, int64_t d,
+                                      int64_t dk, int64_t dv, int64_t window,
+                                      int64_t dtype, void* stream) {
+  if (batch <= 0 || heads <= 0 || s <= 0) return 0;
+  if (kv_heads <= 0 || heads % kv_heads != 0 || (ks == nullptr) != (dk == d))
+    return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)ks |
+        (uintptr_t)o) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;  // TMA reads 16-byte aligned
+  const Call c{q, k, v, ks, o, strides, batch, heads, kv_heads,
+               s, d, dk, dv, window};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return f32::launch_d(q, k, v, o, bh, s, d, dv, window, st);
-  if (dtype == 1) return tc::launch_d(q, k, v, o, bh, s, d, dv, window, st);
+  if (dtype == 0) return f32::launch_d(c, st);
+  if (dtype == 1) return tc::launch_d(c, st);
   return (int)cudaErrorInvalidValue;
 }

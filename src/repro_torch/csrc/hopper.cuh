@@ -67,7 +67,7 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// ---- TMA: boxes of a (bh, s, cols) tensor to and from shared memory ----
+// ---- TMA: boxes of a (bh, s, cols) tensor to shared memory ----
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int col, int row,
                                          int bh) {
@@ -76,6 +76,19 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
           smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+}
+// ... and of a (batch, heads, s, cols) tensor (flash_attention.cu's
+// operands in their own strides)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row,
+                                         int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(head),
+      "r"(batch)
       : "memory");
 }
 // A bulk copy of `bytes` contiguous bytes (a multiple of 16, both ends
@@ -88,13 +101,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
+// A box of a (batch, heads, s, cols) tensor from shared memory
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
                                           const void* src, int col, int row,
-                                          int bh) {
+                                          int head, int batch) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4}], [%1];\n" ::"l"((uint64_t)map),
-      "r"(smem_u32(src)), "r"(col), "r"(row), "r"(bh)
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(col), "r"(row), "r"(head), "r"(batch)
       : "memory");
 }
 

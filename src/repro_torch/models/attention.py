@@ -8,8 +8,11 @@ empty cache slots.
 Causal self-attention over a sequence's own positions (the
 cache-building prefill, and the no-cache forward) goes through the
 flash-attention kernel (:func:`repro_torch.kernels.flash_attention.
-flash_attention`, ``csrc/flash_attention.cu`` on the GPU) when autograd
-records nothing: the kernel has no backward.  When a gradient is being
+flash_attention_heads`, ``csrc/flash_attention.cu`` on the GPU) when
+autograd records nothing: the kernel has no backward.  It takes q, k
+and v as the projections and rope leave them, K/V at their own kv
+heads, and returns (B, T, H, dv): nothing is repeated, permuted or
+concatenated around the call.  When a gradient is being
 recorded (training) it takes :func:`masked_attention`, the reference's
 differentiable math: dense for T <= ``CHUNKED_THRESHOLD``, above it the
 chunked online softmax with each block recomputed in the backward, as
@@ -26,9 +29,12 @@ MLA (:func:`mla_attention`) keeps a latent cache: the normed 512-wide
 heads.  The prompt (and the no-cache forward) builds per-head keys
 ``[ckv @ wk_b, rope(kr)]`` and values ``ckv @ wv_b`` and takes the same
 causal path as GQA (flash attention at (d, dv) = (nope + rope, v_head):
-(192, 128) at the published widths).  Decode attends in the latent
-space (the absorbed path): ``wk_b`` folded into the query, ``wv_b``
-applied after the softmax.
+(192, 128) at the published widths): without a gradient, q is the
+``wq_b`` projection's own buffer with its rope columns rotated in place,
+and the kernel reads ``ckv @ wk_b`` and the one rope key (its
+``k_shared``) as they are; with one, the reference's concatenations.
+Decode attends in the latent space (the absorbed path): ``wk_b`` folded
+into the query, ``wv_b`` applied after the softmax.
 
 M-RoPE (qwen2-vl, ``cfg.mrope``) rotates q and k by the (t, h, w)
 position streams ``positions3`` (:func:`~repro_torch.models.rope.
@@ -53,7 +59,7 @@ import math
 import torch
 
 from .. import rng
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention_heads
 from ..kernels.runtime import is_sharded, records_grad
 from .layers import checkpointed, dense_init, dtype_of, rms_norm_headwise
 from .rope import apply_rope, mrope_cos_sin, rope_cos_sin
@@ -216,23 +222,13 @@ def _chunked_attention(qg, k, v, q_pos, kv_pos, scale, window, causal):
     return o.reshape(B, T, Hkv * G, o.shape[-1])
 
 
-def prefill_attention(q, k, v, window=None):
+def prefill_attention(q, k, v, window=None, k_shared=None):
     """Causal self-attention over the prompt through the flash kernel.
-    q: (B,T,H,d), k/v: (B,T,Hkv,dv) -> (B,T,H,dv).
-
-    Query head h reads KV head h // G (the reference's
-    ``q.reshape(B, T, Hkv, G, d)``), hence ``repeat_interleave``; heads
-    are flattened into the batch as the kernel's (BH, S, d) contract
-    asks."""
-    B, T, H, d = q.shape
-    G = H // k.shape[2]
-
-    def flat(t):
-        return t.permute(0, 2, 1, 3).reshape(B * H, T, t.shape[-1])
-
-    o = flash_attention(flat(q), flat(k.repeat_interleave(G, dim=2)),
-                        flat(v.repeat_interleave(G, dim=2)), window=window)
-    return o.reshape(B, H, T, -1).permute(0, 2, 1, 3)
+    q: (B,T,H,d), k/v: (B,T,Hkv,dv) -> (B,T,H,dv); k_shared: MLA's rope
+    key (B,T,rp), K's last columns for every head.  Query head h reads
+    KV head h // G (the reference's ``q.reshape(B, T, Hkv, G, d)``), in
+    the kernel: nothing is copied around the call."""
+    return flash_attention_heads(q, k, v, window=window, k_shared=k_shared)
 
 
 # ---------------------------------------------------------------------------
@@ -428,14 +424,20 @@ def mla_attention(cfg, p, x, q_pos, kv_pos, cache=None):
     if cache is None or T > 1:
         k_nope = (ckv @ p["wk_b"]).reshape(B, T, H, nope)
         v = constrain((ckv @ p["wv_b"]).reshape(B, T, H, dv), "heads")
-        k = constrain(torch.cat([k_nope, k_rope.expand(B, T, H, rp)], -1),
-                      "heads")
-        qf = constrain(torch.cat([q_nope, q_rope], -1), "heads")
-        if records_grad(qf, k, v):
+        if records_grad(q, k_nope, v, k_rope):
+            k = constrain(torch.cat([k_nope, k_rope.expand(B, T, H, rp)],
+                                    -1), "heads")
+            qf = constrain(torch.cat([q_nope, q_rope], -1), "heads")
             o = masked_attention(qf, k, v, q_pos, q_pos, scale=scale,
                                  window=cfg.sliding_window, causal=True)
         else:
-            o = prefill_attention(qf, k, v, window=cfg.sliding_window)
+            # q's rope columns rotated in its own buffer; the one rope key
+            # of a position read by every head
+            q[..., nope:] = q_rope
+            o = prefill_attention(constrain(q, "heads"),
+                                  constrain(k_nope, "heads"), v,
+                                  window=cfg.sliding_window,
+                                  k_shared=k_rope[:, :, 0])
         if cache is not None:   # prefill: the latent cache
             Sc = cache["ckv"].shape[1]
             if Sc < T:

@@ -329,21 +329,23 @@ def test_serve_gives_the_reference_tokens():
 
 def test_prefill_goes_through_the_kernel_module(monkeypatch):
     """The prefill calls flash attention once a layer, for the causal
-    self-attention at (B * H, T, hd); cross-attention calls it never."""
+    self-attention at (B, T, H, hd); cross-attention calls it never."""
     cfg = _cfg()
     seen = []
-    flash = attention.flash_attention
+    flash = attention.flash_attention_heads
 
-    def spy(q, k, v, window=None):
+    def spy(q, k, v, window=None, k_shared=None):
         seen.append((tuple(q.shape), tuple(k.shape), tuple(v.shape),
                      window))
-        return flash(q, k, v, window)
+        return flash(q, k, v, window, k_shared)
 
-    monkeypatch.setattr(attention, "flash_attention", spy)
+    monkeypatch.setattr(attention, "flash_attention_heads", spy)
     params = transformer.init_params(cfg, rng.PRNGKey(0), device="cpu")
     _, batch = _both(_batch(cfg, 2, 40, 0))
     make_prefill_step(cfg, 44)(params, batch)
-    assert seen == [((8, 40, 32), (8, 40, 32), (8, 40, 32), None)] * 2
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    assert seen == [((2, 40, H, 32), (2, 40, Hkv, 32), (2, 40, Hkv, 32),
+                     None)] * 2
 
 
 # ---------------------------------------------------------------------------

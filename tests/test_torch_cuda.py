@@ -32,7 +32,8 @@ from repro_torch.kernels.distill_loss import (distill_loss,
 from repro_torch.kernels.flash_attention import (BUILT,
                                                  attention_plain,
                                                  bf16_excess,
-                                                 flash_attention)
+                                                 flash_attention,
+                                                 flash_attention_heads)
 from repro_torch.kernels.mixup_kernel import mixup, mixup_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.launch.serve import serve
@@ -367,6 +368,109 @@ def test_flash_attention_refuses_misaligned_f32(gpu):
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
     assert runtime.KERNELS["flash_attention"].launches == before
+
+
+# The models' layout, flash_attention_heads: (B, H, Hkv, S, d, dk, dv,
+# window, dtype) at every bf16 serve call of PERF.md's table (MLA's
+# (192, 128) with its rope key shared, dk 128), float32 at a favg call
+# and the (192, 128) smoke pair, a window
+HEADS_CALLS = {
+    "qwen2-0.5b": (4, 14, 2, 1024, 64, 64, 64, None, torch.bfloat16),
+    "favg": (4, 14, 2, 512, 64, 64, 64, None, torch.bfloat16),
+    "qwen2-vl-72b": (4, 64, 8, 1024, 128, 128, 128, None, torch.bfloat16),
+    "qwen3-14b": (4, 40, 8, 1024, 128, 128, 128, None, torch.bfloat16),
+    "phi3-mini": (4, 32, 32, 1024, 96, 96, 96, None, torch.bfloat16),
+    "zamba2-2.7b": (4, 32, 32, 1024, 80, 80, 80, 4096, torch.bfloat16),
+    "qwen2-moe": (4, 16, 16, 1024, 128, 128, 128, None, torch.bfloat16),
+    "h2o-danube3": (2, 32, 8, 8192, 120, 120, 120, 4096, torch.bfloat16),
+    "whisper": (4, 16, 16, 1024, 64, 64, 64, None, torch.bfloat16),
+    "deepseek-v2": (4, 128, 128, 1024, 192, 128, 128, None, torch.bfloat16),
+    "window": (2, 8, 2, 700, 128, 128, 128, 128, torch.bfloat16),
+    "f32 favg": (4, 8, 2, 128, 64, 64, 64, None, torch.float32),
+    "f32 mla": (2, 4, 4, 40, 192, 128, 128, None, torch.float32),
+    "f32 mla window": (2, 4, 4, 40, 192, 128, 128, 7, torch.float32),
+    "f32 window": (3, 6, 2, 300, 128, 128, 128, 7, torch.float32),
+}
+
+
+def _heads_operands(gpu, B, H, Hkv, S, d, dk, dv, dtype, seed,
+                    q_view=False):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device=gpu).to(dtype)
+
+    # q_view: a view of a wider projection, as MLA's q[..., :nope] is
+    q = draw(B, S, H, d + 64)[..., :d] if q_view else draw(B, S, H, d)
+    ks = draw(B, S, 1, d - dk)[:, :, 0] if dk < d else None
+    return q, draw(B, S, Hkv, dk), draw(B, S, Hkv, dv), ks
+
+
+def _repeated(q, k, v, ks):
+    """What the caller built before: K with the shared key appended, K/V
+    repeated to every query head, the heads flattened into the batch."""
+    B, S, H, _ = q.shape
+    G = H // k.shape[2]
+    if ks is not None:
+        k = torch.cat([k, ks[:, :, None].expand(k.shape[:3] + ks.shape[-1:])],
+                      -1)
+
+    def flat(t):
+        return t.permute(0, 2, 1, 3).reshape(-1, S, t.shape[-1]).contiguous()
+
+    return (flat(q), flat(k.repeat_interleave(G, 2)),
+            flat(v.repeat_interleave(G, 2)))
+
+
+@pytest.mark.parametrize("call", list(HEADS_CALLS) + ["q view"])
+def test_flash_heads_is_bit_equal_to_flash_attention_on_repeats(gpu, call):
+    """The (B, T, H, d) entry point, K/V at their own heads (and MLA's
+    rope key shared), equals the (BH, S, d) one on repeated contiguous
+    operands bit for bit, one launch each: only addressing and the CTAs'
+    order differ between the two."""
+    B, H, Hkv, S, d, dk, dv, window, dtype = HEADS_CALLS.get(
+        call, (2, 8, 2, 300, 64, 64, 64, None, torch.bfloat16))
+    q, k, v, ks = _heads_operands(gpu, B, H, Hkv, S, d, dk, dv, dtype,
+                                  S + d, q_view=call == "q view")
+    before = runtime.KERNELS["flash_attention"].launches
+    got = flash_attention_heads(q, k, v, window=window, k_shared=ks)
+    torch.cuda.synchronize()
+    assert runtime.KERNELS["flash_attention"].launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, S, H, dv)
+    assert got.is_contiguous()
+    want = flash_attention(*_repeated(q, k, v, ks), window=window)
+    assert torch.equal(got.permute(0, 2, 1, 3).reshape(B * H, S, dv), want)
+
+
+def test_flash_heads_refuses_before_a_launch(gpu):
+    """Every operand the kernel does not take raises ValueError with no
+    launch counted: heads not a multiple of the kv heads, a stride TMA
+    cannot take (130 bytes; a 0 stride), a head dim off the unit stride,
+    an unbuilt (d, dv), a shared key off a chunk, a misaligned base, an
+    input that requires grad."""
+    def bf16(*shape):
+        return torch.randn(*shape, device=gpu).bfloat16()
+
+    B, S = 2, 64
+    k = bf16(B, S, 2, 128)
+    cases = [
+        (bf16(B, S, 6, 128), bf16(B, S, 4, 128), bf16(B, S, 4, 128), None),
+        (bf16(B, S, 4, 65)[..., :64], bf16(B, S, 2, 64), bf16(B, S, 2, 64),
+         None),
+        (bf16(B, S, 4, 128), bf16(B, S, 1, 128).expand(B, S, 2, 128), k,
+         None),
+        (bf16(B, S, 128, 4).transpose(2, 3), k, k, None),
+        (bf16(B, S, 4, 48), bf16(B, S, 2, 48), bf16(B, S, 2, 48), None),
+        (bf16(B, S, 4, 96), bf16(B, S, 4, 48), bf16(B, S, 4, 96),
+         bf16(B, S, 48)),
+        (bf16(B * S * 4 * 128 + 1)[1:].view(B, S, 4, 128), k, k, None),
+        (bf16(B, S, 4, 128).requires_grad_(True), k, k, None),
+    ]
+    before = runtime.KERNELS["flash_attention"].launches
+    for i, (q, kk, v, ks) in enumerate(cases):
+        with pytest.raises(ValueError):
+            flash_attention_heads(q, kk, v, k_shared=ks)
+        assert runtime.KERNELS["flash_attention"].launches == before, i
 
 
 @pytest.mark.parametrize("n,c", [(160, 10), (33, 12), (1000, 10)])

@@ -341,20 +341,22 @@ def test_serve_takes_a_weight_tree():
 def test_width_variants_prefill_through_the_kernel_module(monkeypatch, case,
                                                           head, window):
     """The width variants' prefill calls flash attention once a layer at
-    the published head dim, (B * H, T, d), with the window."""
+    the published head dim, (B, T, H, d) q and (B, T, Hkv, d) v, with
+    the window."""
     cfg = _cfg(case)
     seen = []
-    flash = attention.flash_attention
+    flash = attention.flash_attention_heads
 
-    def spy(q, k, v, window=None):
+    def spy(q, k, v, window=None, k_shared=None):
         seen.append((tuple(q.shape), tuple(v.shape), window))
-        return flash(q, k, v, window)
+        return flash(q, k, v, window, k_shared)
 
-    monkeypatch.setattr(attention, "flash_attention", spy)
+    monkeypatch.setattr(attention, "flash_attention_heads", spy)
     params = transformer.init_params(cfg, rng.PRNGKey(0), device="cpu")
     make_prefill_step(cfg, 163)(params, {"tokens": torch.zeros(
         2, 160, dtype=torch.long)})
-    assert seen == [((8, 160, head), (8, 160, head), window)] * 2
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    assert seen == [((2, 160, H, head), (2, 160, Hkv, head), window)] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -387,22 +387,23 @@ def test_width80_prefill_runs_through_the_kernel_modules(monkeypatch):
     (through ``ssd_chunked``), as zamba2's does at full width."""
     cfg = _cfg("width80")
     seen = {"flash": [], "ssd": []}
-    flash, ssd = attention.flash_attention, mamba2.ssd_chunked
+    flash, ssd = attention.flash_attention_heads, mamba2.ssd_chunked
 
-    def spy_flash(q, k, v, window=None):
+    def spy_flash(q, k, v, window=None, k_shared=None):
         seen["flash"].append((tuple(q.shape), tuple(v.shape), window))
-        return flash(q, k, v, window)
+        return flash(q, k, v, window, k_shared)
 
     def spy_ssd(x, dt, A, Bm, Cm, chunk, initial_state=None):
         seen["ssd"].append((tuple(x.shape), tuple(Bm.shape), chunk))
         return ssd(x, dt, A, Bm, Cm, chunk, initial_state)
 
-    monkeypatch.setattr(attention, "flash_attention", spy_flash)
+    monkeypatch.setattr(attention, "flash_attention_heads", spy_flash)
     monkeypatch.setattr(mamba2, "ssd_chunked", spy_ssd)
     params = transformer.init_params(cfg, rng.PRNGKey(0), device="cpu")
     toks = torch.zeros(2, 160, dtype=torch.long)
     make_prefill_step(cfg, 163)(params, {"tokens": toks})
-    assert seen["flash"] == [((8, 160, 80), (8, 160, 80), 128)] * 2
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    assert seen["flash"] == [((2, 160, H, 80), (2, 160, Hkv, 80), 128)] * 2
     assert seen["ssd"] == [((2, 160, 8, 64), (2, 160, 1, 64), 32)] * 4
 
 

@@ -324,21 +324,22 @@ def test_int8_decode_stays_within_the_reference_bound(how):
 
 def test_prefill_goes_through_the_kernel_module_unquantized(monkeypatch):
     """The int8 prefill calls flash attention once a layer on the
-    unquantized k/v (floating, the parameters' dtype) at (B * H, T, hd);
+    unquantized k/v (floating, the parameters' dtype) at (B, T, H, hd);
     decode calls it never."""
     cfg = _cfg()
     seen = []
-    flash = attention.flash_attention
+    flash = attention.flash_attention_heads
 
-    def spy(q, k, v, window=None):
+    def spy(q, k, v, window=None, k_shared=None):
         seen.append((tuple(q.shape), k.dtype, v.dtype, window))
-        return flash(q, k, v, window)
+        return flash(q, k, v, window, k_shared)
 
-    monkeypatch.setattr(attention, "flash_attention", spy)
+    monkeypatch.setattr(attention, "flash_attention_heads", spy)
     params = transformer.init_params(cfg, rng.PRNGKey(0), device="cpu")
     logits, cache = make_prefill_step(cfg, 44)(
         params, {"tokens": torch.zeros(2, 40, dtype=torch.long)})
-    assert seen == [((8, 40, 32), torch.float32, torch.float32, None)] * 2
+    assert seen == [((2, 40, cfg.num_heads, 32), torch.float32,
+                     torch.float32, None)] * 2
     make_decode_step(cfg)(params, {"tokens": torch.zeros(
         2, 1, dtype=torch.long), "cache": cache})
     assert len(seen) == 2

@@ -342,24 +342,27 @@ def test_serve_gives_the_reference_tokens():
 @pytest.mark.parametrize("case,width", [("smoke", (48, 32)),
                                         ("width192", (192, 128))])
 def test_prefill_goes_through_the_kernel_module(monkeypatch, case, width):
-    """The prefill calls flash attention once a layer at (B * H, T, d)
-    q/k and (B * H, T, dv) v: (192, 128) for the width-192 variant, with
-    no window."""
+    """The prefill calls flash attention once a layer at (B, T, H, d) q,
+    (B, T, H, nope) k, the one rope key (B, T, rope) shared by every head
+    and (B, T, H, dv) v: (192, 128) for the width-192 variant, with no
+    window."""
     cfg = _cfg(case)
     seen = []
-    flash = attention.flash_attention
+    flash = attention.flash_attention_heads
 
-    def spy(q, k, v, window=None):
+    def spy(q, k, v, window=None, k_shared=None):
         seen.append((tuple(q.shape), tuple(k.shape), tuple(v.shape),
-                     window))
-        return flash(q, k, v, window)
+                     tuple(k_shared.shape), window))
+        return flash(q, k, v, window, k_shared)
 
-    monkeypatch.setattr(attention, "flash_attention", spy)
+    monkeypatch.setattr(attention, "flash_attention_heads", spy)
     params = transformer.init_params(cfg, rng.PRNGKey(0), device="cpu")
     make_prefill_step(cfg, 44)(params, {"tokens": torch.zeros(
         2, 40, dtype=torch.long)})
     d, dv = width
-    assert seen == [((8, 40, d), (8, 40, d), (8, 40, dv), None)] * 2
+    H, nope, rp = cfg.num_heads, cfg.head_dim, cfg.rope_head_dim
+    assert seen == [((2, 40, H, d), (2, 40, H, nope), (2, 40, H, dv),
+                     (2, 40, rp), None)] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -391,22 +391,24 @@ def test_serve_refuses_embedding_archs_as_the_reference():
 
 
 def test_prefill_goes_through_the_kernel_module(monkeypatch):
-    """The prefill calls flash attention once a layer at (B * H, T, hd),
-    the two KV heads repeated for the four query heads, no window."""
+    """The prefill calls flash attention once a layer at (B, T, H, hd)
+    q, the two KV heads at their own heads for the four query heads (not
+    repeated), no window."""
     cfg = _cfg()
     seen = []
-    flash = attention.flash_attention
+    flash = attention.flash_attention_heads
 
-    def spy(q, k, v, window=None):
+    def spy(q, k, v, window=None, k_shared=None):
         seen.append((tuple(q.shape), tuple(k.shape), tuple(v.shape),
                      window))
-        return flash(q, k, v, window)
+        return flash(q, k, v, window, k_shared)
 
-    monkeypatch.setattr(attention, "flash_attention", spy)
+    monkeypatch.setattr(attention, "flash_attention_heads", spy)
     params = transformer.init_params(cfg, rng.PRNGKey(0), device="cpu")
     make_prefill_step(cfg, 44)(params, {"embeds": torch.tensor(
         _embeds(cfg, (2, 40), 0))})
-    assert seen == [((8, 40, 32), (8, 40, 32), (8, 40, 32), None)] * 2
+    assert seen == [((2, 40, 4, 32), (2, 40, 2, 32), (2, 40, 2, 32),
+                     None)] * 2
 
 
 # ---------------------------------------------------------------------------

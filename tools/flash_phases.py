@@ -148,7 +148,8 @@ def build(dtype):
     lib = ctypes.CDLL(str(out / "flash.so"))
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_int64)]
+        + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
     lib.flash_phase_cycles.restype = ctypes.c_int
     lib.flash_phase_cycles.argtypes = [ctypes.c_void_p]
     return lib
@@ -175,6 +176,7 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 1
     from chip_smoke import nvidia_smi
+    from repro_torch.kernels.flash_attention import tma_strides
 
     f32 = args.dtype == "float32"
     calls = F32_CALLS if f32 else CALLS
@@ -189,17 +191,23 @@ def main() -> int:
     n = 4 * F32_SLOTS if f32 else 2 * len(BF16_PHASES)
     counts = (ctypes.c_ulonglong * n)()
     for name in args.calls or list(calls):
-        bh, s, d, dv, window = calls[name]
-        q, k = (torch.randn(bh, s, d, generator=gen, device="cuda")
-                .to(dtype) for _ in range(2))
-        v = torch.randn(bh, s, dv, generator=gen, device="cuda").to(dtype)
-        o = torch.empty(bh, s, dv, dtype=q.dtype, device="cuda")
+        B, H, Hkv, s, d, dv, window, rope = calls[name]
+        bh = B * H
+        q = torch.randn(B, s, H, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, s, Hkv, d - rope, generator=gen,
+                        device="cuda").to(dtype)
+        v = torch.randn(B, s, Hkv, dv, generator=gen, device="cuda").to(dtype)
+        ks = (torch.randn(B, s, rope, generator=gen, device="cuda").to(dtype)
+              if rope else None)
+        o = torch.empty(B, s, H, dv, dtype=q.dtype, device="cuda")
+        strides = (ctypes.c_int64 * 15)(*tma_strides(q, k, v, ks))
         for _ in range(2):   # the second launch is the one read
             if lib.flash_phase_cycles(counts):
                 raise RuntimeError("flash_phase_cycles failed")
             err = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh,
-                s, d, dv, window or -1, 0 if f32 else 1,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if ks is None else ks.data_ptr(), o.data_ptr(), strides,
+                B, H, Hkv, s, d, d - rope, dv, window or -1, 0 if f32 else 1,
                 torch.cuda.current_stream().cuda_stream)
             torch.cuda.synchronize()
             if err:

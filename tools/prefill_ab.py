@@ -2,16 +2,22 @@
 """Warm serve-prefill time of two checkouts of the port, in turns, on one GPU.
 
     python3 tools/prefill_ab.py OTHER_CHECKOUT [--arch qwen2-0.5b] [--reps 20]
+                                [--batch B] [--prompt T] [--layers N]
 
-Times the prefill step of ``repro_torch`` at an architecture's full config
-(batch 4, prompt 1024, room for 32 generated tokens; random weights from
-PRNGKey(0), prompts from PRNGKey(1), as ``chip_smoke.py`` phase 7 serves
-them), once from OTHER_CHECKOUT/src and once from this checkout's src,
+Times the prefill step of ``repro_torch`` at an architecture's published
+widths (batch 4, prompt 1024, room for 32 generated tokens, as
+``chip_smoke.py`` serves them: h2o-danube-3-4b at batch 2 and prompt
+8192, qwen2-vl-72b at 8 of 80 layers and deepseek-v2-236b at 6 of 60,
+``SHAPES``; random weights from PRNGKey(0), prompts from PRNGKey(1), an
+embedding arch's stub embeddings a normal x 0.1 from PRNGKey(1)), once
+from OTHER_CHECKOUT/src and once from this checkout's src,
 each in a fresh process, in turns: other, this, this, other.  A turn
 builds its checkout's kernels into that checkout's build/ directory,
 makes two untimed calls, then times ``reps`` calls (host clock around the
 call, ending in ``torch.cuda.synchronize()``).  Prints each turn's median
-and, per checkout, the median over all its calls and the difference.
+and peak device memory over the timed calls (``max_memory_allocated``
+after a reset; the weights included) and, per checkout, the median over
+all its calls and the difference.
 Each turn then traces five more calls with ``torch.profiler`` and prints
 the device's busy time per call (the sum of its kernels' device time)
 and the kernels that take the most, then the port's own kernels (the
@@ -30,6 +36,10 @@ from pathlib import Path
 
 THIS = Path(__file__).resolve().parents[1]
 BATCH, PROMPT, GEN = 4, 1024, 32
+# arch -> (batch, prompt, layers or None: the published depth), as
+# chip_smoke.py serves it
+SHAPES = {"h2o-danube-3-4b": (2, 8192, None), "qwen2-vl-72b": (4, 1024, 8),
+          "deepseek-v2-236b": (4, 1024, 6)}
 # the kernels of src/repro_torch/csrc that a prefill launches, by name
 PORT_KERNELS = re.compile(r"flash_fwd|ssd_scan_kernel|chunk_scores|"
                           r"chunk_states|state_pass|chunk_scan")
@@ -63,8 +73,11 @@ def device_busy(step, args, calls=5):
     return sum(ms for _, ms in kernels), kernels
 
 
-def child(src: str, arch: str, reps: int) -> None:
+def child(src: str, arch: str, reps: int, batch: int, prompt: int,
+          layers) -> None:
     sys.path.insert(0, src)
+    import dataclasses
+
     import torch
 
     from repro_torch import rng
@@ -78,22 +91,31 @@ def child(src: str, arch: str, reps: int) -> None:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # as launch/serve.py does
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     times = []
     with torch.inference_mode():
         params = init_params(cfg, rng.PRNGKey(0), device=dev)
-        prompts = synthetic_tokens(rng.PRNGKey(1), BATCH, PROMPT,
-                                   cfg.vocab_size, device=dev)
-        step = make_prefill_step(cfg, PROMPT + GEN)
+        if cfg.embed_input:
+            inputs = {"embeds": rng.normal(
+                rng.PRNGKey(1, dev), (batch, prompt, cfg.d_model)) * 0.1}
+        else:
+            inputs = {"tokens": synthetic_tokens(
+                rng.PRNGKey(1), batch, prompt, cfg.vocab_size, device=dev)}
+        step = make_prefill_step(cfg, prompt + GEN)
         for i in range(2 + reps):
+            if i == 2:
+                torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step(params, {"tokens": prompts})
+            step(params, inputs)
             torch.cuda.synchronize()
             if i >= 2:
                 times.append((time.perf_counter() - t0) * 1e3)
-        busy = device_busy(step, (params, {"tokens": prompts}))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = device_busy(step, (params, inputs))
     print(json.dumps({"ms": times, "device": torch.cuda.get_device_name(0),
-                      "busy": busy}))
+                      "busy": busy, "peak_gib": peak}))
 
 
 def main() -> int:
@@ -101,10 +123,16 @@ def main() -> int:
     ap.add_argument("other", nargs="?")
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--batch", type=int)
+    ap.add_argument("--prompt", type=int)
+    ap.add_argument("--layers", type=int)
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    batch, prompt, layers = SHAPES.get(args.arch, (BATCH, PROMPT, None))
+    batch, prompt = args.batch or batch, args.prompt or prompt
+    layers = args.layers or layers
     if args.child:
-        child(args.child, args.arch, args.reps)
+        child(args.child, args.arch, args.reps, batch, prompt, layers)
         return 0
     if not args.other:
         ap.error("give the other checkout's directory")
@@ -113,17 +141,21 @@ def main() -> int:
     for name in ("other", "this", "this", "other"):
         out = subprocess.run(
             [sys.executable, __file__, "--child", str(trees[name]), "--arch",
-             args.arch, "--reps", str(args.reps)], capture_output=True,
-            text=True, timeout=1200)
+             args.arch, "--reps", str(args.reps), "--batch", str(batch),
+             "--prompt", str(prompt)] + (["--layers", str(layers)]
+                                         if layers else []),
+            capture_output=True, text=True, timeout=1200)
         if out.returncode != 0:
             print(out.stdout + out.stderr, file=sys.stderr)
             return 1
         res = json.loads(out.stdout.strip().splitlines()[-1])
         runs[name] += res["ms"]
         print(f"{name} ({trees[name]}), {res['device']}: {args.arch} "
-              f"prefill {BATCH}x{PROMPT} warm median "
+              + (f"({layers} layers) " if layers else "")
+              + f"prefill {batch}x{prompt} warm median "
               f"{statistics.median(res['ms']):.3f} ms over {args.reps} "
-              f"calls (min {min(res['ms']):.3f})", flush=True)
+              f"calls (min {min(res['ms']):.3f}), peak device memory "
+              f"{res['peak_gib']:.3f} GiB", flush=True)
         if res["busy"] is None:
             print("  device busy time: not measured (the trace holds no "
                   "device time)")
