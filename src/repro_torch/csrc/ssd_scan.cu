@@ -3,18 +3,27 @@
 //
 // Per row bh (batch and head flattened), state N, head dim P, chunk L:
 //
-//   intra:  y_l += sum_{m<=l} exp(seg_l - seg_m) (C_l . B_m) x_m
+//   intra:  y_l += sum_{m<=l} exp(seg_l - seg_m) dt_m (C_l . B_m) x_m
 //   inter:  y_l += exp(seg_l) C_l . S_{c-1}
 //   state:  S_c  = exp(seg_last) S_{c-1}
-//                  + sum_m exp(seg_last - seg_m) B_m x_m^T
+//                  + sum_m exp(seg_last - seg_m) dt_m B_m x_m^T
 //
-// with seg the inclusive cumsum of dA within the chunk and x = x * dt.
+// with seg the inclusive cumsum of dA = dt A_h within the chunk.  Two
+// entry points: ssd_scan_heads_launch takes the models' layout, x (B, S,
+// H, P), dt (B, S, H), A (H), B and C (B, S, G, N) with head h reading
+// group h / (H / G), each in its own strides, and writes y (B, S, H, P)
+// in place; dt is folded into the per-key scales (the decay of each key's
+// score in chunk_scan, the state weight w in chunk_states), so no x * dt
+// tensor exists, and dA = dt A_h is formed where the cumsum reads it (the
+// float32 product torch forms).  Given dA (BH, S) and no dt, it scans x
+// as it is (x = x * dt, the reference's contract): ssd_scan_launch's (BH,
+// S, P) rows are the B = 1, H = BH case, bit for bit what they were.
 //
 // Replaces the Pallas kernel _ssd_kernel of src/repro/kernels/ssd_scan.py
 // (launched by ssd_scan_pallas, its pl.pallas_call at line 77), whose grid
 // walks (bh, chunk) in order on one core and carries the (N, P) state in
-// VMEM scratch from one chunk to the next.  B and C are read through a head-to-group index (row
-// bh reads row bh / heads_per_group), never repeated to every head.
+// VMEM scratch from one chunk to the next.  B and C are read through a
+// head-to-group index, never repeated to every head.
 // Optionally the state starts from `init` and the state after the last
 // chunk is written to `final_state` (null: zeros / not written).
 //
@@ -28,7 +37,12 @@
 //   700 W (tools/ssd_ab.py): 0.141 ms at mamba2's call and 0.239 ms at
 //   zamba2's, 28% and 27% of those bounds; chunk_scan's consumers spend a
 //   third of their cycles on each query tile's own work (C . S_prev, the
-//   pair's cumsum, y: tools/ssd_phases.py).
+//   pair's cumsum, y: tools/ssd_phases.py).  In the models' layout with
+//   dt folded: 0.145 and 0.257 ms; on (B, H, S, P) storage 0.143 and
+//   0.256, so the strided rows cost ~1% and dt's folding (its strided
+//   reads and copy in chunk_states, its tile in chunk_scan's G stages)
+//   3-5%, against the x-sized passes around the call that it removes
+//   (~0.1 ms a call at mamba2, ~0.22 at zamba2).
 //
 // What the design does about it:
 //
@@ -99,9 +113,19 @@
 //   wgmma of a kernel whose consumers it cannot fit (C7512, one wait a
 //   wgmma): at 224 or 232 it did, and so it does when C's A fragments are
 //   loaded whole or ahead of the key tiles (64 registers more).  The
-//   producer's splitting warps spill a few registers at 24.  After the
+//   producer warpgroup spills a few registers at 24 (ptxas: 72 B of
+//   stores, 96 B with dt's loads and head coordinates).  After the
 //   setmaxnreg.inc a wait that times out traps through an out-of-line
 //   call (hopper.cuh's bar_wait<true>).
+// * The models' layout: x, B and C through 4-D tensor maps in their own
+//   strides, (P, S, H, B) and (N, S, G, B); row bh = b H + h reads group
+//   (b, h / hpg), so no operand is copied into rows.  dt (B, S, H) is
+//   read H floats apart once a (row, chunk) by chunk_states, into shared
+//   memory beside seg; its CTAs of the first state rows copy it, chunk by
+//   chunk and contiguous, into the scratch (dtT), where chunk_scan's
+//   cumsum reads it and its loader brings each key tile's 64 values into
+//   the G stage with the tile's scores.  y is stored at (b, t, h) in its
+//   strides.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -131,6 +155,16 @@ __host__ __device__ constexpr int causal_tiles(int n_qt) {
   return n_qt * (n_qt + 1) / 2;
 }
 
+// Where row bh = b H + h of the scan reads and writes, beside the tensor
+// maps: the element strides (t, head or group, batch) of C, dt and y; the
+// heads H of a batch row, of which hpg share a B/C group (head h reads
+// group h / hpg); cp, the floats a chunk takes in dtT, chunk_states' copy
+// of dt for chunk_scan ((row, chunk) blocks of 64-key tiles).
+struct Geom {
+  int64_t c_t, c_g, c_b, dt_t, dt_h, dt_b, y_t, y_h, y_b;
+  int heads, hpg, cp;
+};
+
 template <int NC>
 __device__ __forceinline__ void consumer_sync() {  // the consumers only
   asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
@@ -152,17 +186,19 @@ __device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
         : "memory");
 }
 
-// seg[i] = scale (a[0] + ... + a[i]) for i < chunk, by the NC consumer
-// threads.
-template <int NC>
-__device__ void chunk_cumsum(const float* a, int chunk, float scale,
-                             float* seg, float* warp_sum, int tid) {
+// seg[i] = scale (d[0] + ... + d[i]) for i < chunk, by the NC consumer
+// threads, with d = a or, MUL, the product a * mul rounded on its own (no
+// contraction into the sum: the dA = dt A of the reference).
+template <int NC, bool MUL = false>
+__device__ void chunk_cumsum(const float* a, int chunk, float mul,
+                             float scale, float* seg, float* warp_sum,
+                             int tid) {
   constexpr int E = MAX_CHUNK / NC;
   float v[E], run = 0.f;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int i = tid * E + e;
-    run += i < chunk ? a[i] : 0.f;
+    run += i < chunk ? (MUL ? __fmul_rn(a[i], mul) : a[i]) : 0.f;
     v[e] = run;
   }
   const int lane = tid & 31;
@@ -185,6 +221,7 @@ __device__ void chunk_cumsum(const float* a, int chunk, float scale,
 // ---------------------------------------------------------------------------
 // (0) chunk_scores: G = C . B^T for one (group, chunk, causal tile), one
 // warpgroup, in 3xTF32 with the k-steps in the per-head kernel's order.
+// Group grp = b G + g of a batch row b's G groups.
 // ---------------------------------------------------------------------------
 
 template <int NP>
@@ -199,13 +236,14 @@ template <int NP>
 __global__ void __launch_bounds__(128)
     chunk_scores(const __grid_constant__ CUtensorMap tC,
                  const __grid_constant__ CUtensorMap tB,
-                 float* __restrict__ scores, int chunk) {
+                 float* __restrict__ scores, int chunk, int groups) {
   using L = LayoutG<NP>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   const int tid = threadIdx.x, tile = blockIdx.x;
   const int c = blockIdx.y, grp = blockIdx.z, c0 = c * chunk;
+  const int bi = grp / groups, gi = grp - bi * groups;
   int qi = 0;
   while (causal_tiles(qi + 1) <= tile) ++qi;
   const int ki = tile - causal_tiles(qi);
@@ -214,9 +252,9 @@ __global__ void __launch_bounds__(128)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     bar_expect_tx(full, 2 * L::TILE_BYTES);
     for (int j = 0; j < NP / 32; ++j) {
-      tma_load(smem + j * T * 128, &tC, full, 32 * j, c0 + T * qi, grp);
+      tma_load(smem + j * T * 128, &tC, full, 32 * j, c0 + T * qi, gi, bi);
       tma_load(smem + L::TILE_BYTES + j * T * 128, &tB, full, 32 * j,
-               c0 + T * ki, grp);
+               c0 + T * ki, gi, bi);
     }
   }
   __syncthreads();
@@ -264,7 +302,9 @@ __global__ void __launch_bounds__(128)
 
 // ---------------------------------------------------------------------------
 // (a) chunk_states: E_c = (B o w)^T x per (row, chunk, 64 state rows),
-// w = exp(seg_last - seg); one warpgroup.
+// w = exp(seg_last - seg) dt (without dt: exp(seg_last - seg)); one
+// warpgroup.  With dt, the CTAs of the first 64 state rows also copy the
+// chunk's dt to dtT.
 // ---------------------------------------------------------------------------
 
 template <int PP, int NP>
@@ -283,9 +323,10 @@ template <int PP, int NP>
 __global__ void __launch_bounds__(128, 3)
     chunk_states(const __grid_constant__ CUtensorMap tB,
                  const __grid_constant__ CUtensorMap tX,
-                 const float* __restrict__ dA, float* __restrict__ states,
-                 float* __restrict__ decay, int s, int chunk, int nc, int n,
-                 int p, int heads_per_group) {
+                 const float* __restrict__ dA, const float* __restrict__ dt,
+                 const float* __restrict__ A, float* __restrict__ dtT,
+                 float* __restrict__ states, float* __restrict__ decay, int s,
+                 int chunk, int nc, int n, int p, const Geom geo) {
   using L = LayoutA<PP, NP>;
   constexpr int NC = 128, NH = L::NH;
   extern __shared__ uint8_t smem_raw[];
@@ -297,7 +338,8 @@ __global__ void __launch_bounds__(128, 3)
   uint8_t* xt = smem + L::XT_OFF;
   const int tid = threadIdx.x, half = blockIdx.x;
   const int c = blockIdx.y, row = blockIdx.z, c0 = c * chunk;
-  const int grp = row / heads_per_group;
+  const int bi = row / geo.heads, hi = row - bi * geo.heads;
+  const int gi = hi / geo.hpg;
   const int n_kt = (chunk + T - 1) / T;
   // thread 0 issues every load: this CTA's state columns of B and x, key
   // tile i
@@ -305,10 +347,10 @@ __global__ void __launch_bounds__(128, 3)
     bar_expect_tx(full, L::STAGE);
     for (int j = 0; j < NH / 32; ++j)
       tma_load(smem + j * T * 128, &tB, full, NH * half + 32 * j,
-               c0 + T * i, grp);
+               c0 + T * i, gi, bi);
     for (int j = 0; j < PP / 32; ++j)
       tma_load(smem + L::B_BYTES + j * T * 128, &tX, full, 32 * j,
-               c0 + T * i, row);
+               c0 + T * i, hi, bi);
   };
   if (tid == 0) {
     bar_init(full, 1);
@@ -317,11 +359,26 @@ __global__ void __launch_bounds__(128, 3)
   }
   __syncthreads();
 
-  chunk_cumsum<NC>(dA + (size_t)row * s + c0, chunk, 1.f, seg, warp_sum,
-                   tid);
+  if (dt != nullptr) {  // the chunk's dt, staged in wl
+    const float* dtr = dt + bi * geo.dt_b + hi * geo.dt_h + c0 * geo.dt_t;
+    float* copy = dtT + ((size_t)row * nc + c) * geo.cp;
+    for (int i = tid; i < chunk; i += NC) {
+      const float v = dtr[i * geo.dt_t];
+      wl[i] = v;
+      if (half == 0) copy[i] = v;
+    }
+    consumer_sync<NC>();
+    chunk_cumsum<NC, true>(wl, chunk, A[hi], 1.f, seg, warp_sum, tid);
+  } else {
+    chunk_cumsum<NC>(dA + (size_t)row * s + c0, chunk, 0.f, 1.f, seg,
+                     warp_sum, tid);
+  }
   const float seg_last = seg[chunk - 1];
+  // each thread reads back only the dt it staged
   for (int i = tid; i < n_kt * T; i += NC)
-    wl[i] = i < chunk ? expf(seg_last - seg[i]) : 0.f;
+    wl[i] = i >= chunk       ? 0.f
+            : dt != nullptr ? expf(seg_last - seg[i]) * wl[i]
+                            : expf(seg_last - seg[i]);
   if (tid == 0 && half == 0) decay[(size_t)row * nc + c] = expf(seg_last);
   consumer_sync<NC>();
 
@@ -474,23 +531,28 @@ struct LayoutC {
   static constexpr int X_BYTES = T * PP * 4, XT_BYTES = PP * T * 4;
   static constexpr int XS = 2;  // x stages
   // S_prev big and small, two x^T buffers (big, small), the x ring, then
-  // the G ring: as many stages (each both consumers' tiles) as fit, <= 4
+  // the G ring: as many stages (each both consumers' tiles, and the key
+  // tile's dt, DT_BYTES) as fit, <= 4
   static constexpr int XT_OFF = 2 * S_BYTES;
   static constexpr int X_OFF = XT_OFF + 4 * XT_BYTES;
   static constexpr int G_OFF = X_OFF + XS * X_BYTES;
-  static constexpr int TAIL = (MAX_CHUNK + 8) * 4 + 256 + 1024;
-  static constexpr int GS_FIT = (SMEM_MAX - G_OFF - TAIL) / (2 * G_TILE);
+  static constexpr int DT_BYTES = T * 4;
+  static constexpr int BARS = 160;  // room for N_BARS at 4 G stages
+  static constexpr int TAIL = (MAX_CHUNK + 8) * 4 + BARS + 1024;
+  static constexpr int GS_FIT =
+      (SMEM_MAX - G_OFF - TAIL) / (2 * G_TILE + DT_BYTES);
   static constexpr int GS = GS_FIT > 4 ? 4 : GS_FIT;
   static_assert(GS >= 2, "no room for two G stages");
-  static constexpr int SEG_OFF = G_OFF + GS * 2 * G_TILE;
+  static constexpr int DT_OFF = G_OFF + GS * 2 * G_TILE;
+  static constexpr int SEG_OFF = DT_OFF + GS * DT_BYTES;
   static constexpr int BAR_OFF = SEG_OFF + (MAX_CHUNK + 8) * 4;
   // mbarriers
   static constexpr int S_FULL = 0, S_READY = 1, S_EMPTY = 2, X_FULL = 3;
   static constexpr int X_EMPTY = X_FULL + XS, G_FULL = X_EMPTY + XS;
   static constexpr int G_EMPTY = G_FULL + GS, XT_FULL = G_EMPTY + GS;
   static constexpr int XT_EMPTY = XT_FULL + 2, N_BARS = XT_EMPTY + 2;
-  static_assert(8 * N_BARS <= 256, "barriers");
-  static constexpr int SMEM = BAR_OFF + 256 + 1024;
+  static_assert(8 * N_BARS <= BARS, "barriers");
+  static constexpr int SMEM = BAR_OFF + BARS + 1024;
 };
 
 template <int B>
@@ -500,16 +562,18 @@ struct Buf {
 
 // The loading thread: per (row, chunk) pair S_prev (unless it is zero),
 // then per query tile, heaviest first, and key tile the x tile and the
-// consumers' G tiles (a consumer's only if the key tile reaches its rows),
-// each into its ring stage once the stage's last tile is released.  A wait
-// on an empty barrier's first phase (parity 1) passes.
-template <int PP, int NP>
+// consumers' G tiles (a consumer's only if the key tile reaches its rows)
+// with, DT, the key tile's dt from dtT, each into its ring stage once the
+// stage's last tile is released.  A wait on an empty barrier's first
+// phase (parity 1) passes.
+template <int PP, int NP, bool DT>
 __device__ __forceinline__ void scan_load(uint8_t* smem,
                                           const CUtensorMap* tX,
                                           const CUtensorMap* tS,
-                                          const float* scores, int chunk,
-                                          int nc, int hpg, int units,
-                                          int zero_start) {
+                                          const float* scores,
+                                          const float* dtT, int chunk,
+                                          int nc, int heads, int hpg, int cp,
+                                          int units, int zero_start) {
   using L = LayoutC<PP, NP>;
   constexpr int XS = L::XS, GS = L::GS;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -519,6 +583,7 @@ __device__ __forceinline__ void scan_load(uint8_t* smem,
   int k = 0;        // key tiles so far
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int row = u / nc, c = u % nc, c0 = c * chunk;
+    const int bi = row / heads, hi = row - bi * heads;
     const float* g_tiles =
         scores + (size_t)((row / hpg) * nc + c) * nt * (T * T);
     if (!(zero_start && c == 0)) {
@@ -526,7 +591,7 @@ __device__ __forceinline__ void scan_load(uint8_t* smem,
       bar_expect_tx(bars + L::S_FULL, L::S_BYTES);
       for (int j = 0; j < NP / 32; ++j)
         tma_load(smem + j * PP * 128, tS, bars + L::S_FULL, 32 * j, 0,
-                 row * nc + c);
+                 row * nc + c, 0);
       ++ks;
     }
     for (int z = nz - 1; z >= 0; --z) {
@@ -537,9 +602,9 @@ __device__ __forceinline__ void scan_load(uint8_t* smem,
         bar_expect_tx(bars + L::X_FULL + xs, L::X_BYTES);
         for (int j = 0; j < PP / 32; ++j)
           tma_load(smem + L::X_OFF + xs * L::X_BYTES + j * T * 128, tX,
-                   bars + L::X_FULL + xs, 32 * j, c0 + T * i, row);
+                   bars + L::X_FULL + xs, 32 * j, c0 + T * i, hi, bi);
         wait_phase(bars + L::G_EMPTY + gs, ((k / GS) & 1) ^ 1);
-        uint32_t bytes = 0;
+        uint32_t bytes = DT ? L::DT_BYTES : 0;
         for (int w = 0; w < 2; ++w) {
           const int qi = q0 / T + w;
           if (qi < n_qt && i <= qi) bytes += G_TILE;
@@ -552,6 +617,10 @@ __device__ __forceinline__ void scan_load(uint8_t* smem,
                       g_tiles + (size_t)(causal_tiles(qi) + i) * (T * T),
                       G_TILE, bars + L::G_FULL + gs);
         }
+        if (DT)
+          bulk_load(smem + L::DT_OFF + gs * L::DT_BYTES,
+                    dtT + (size_t)u * cp + T * i, L::DT_BYTES,
+                    bars + L::G_FULL + gs);
       }
     }
   }
@@ -605,13 +674,15 @@ __device__ __forceinline__ void scan_split(uint8_t* smem, int chunk, int nc,
 
 // A consumer warpgroup (ctid 0..255, rows 64 wg ..).  Per pair the seg
 // cumsum (both consumers; the pair's first barrier also keeps the last
-// pair's readers of seg behind), then per query tile the inter product
-// and the key tiles at or below its rows, then y.
-template <int PP, int NP>
+// pair's readers of seg behind) of dA, or DT of dt A_h from dtT, then per
+// query tile the inter product and the key tiles at or below its rows,
+// then y.
+template <int PP, int NP, bool DT>
 __device__ __forceinline__ void scan_consume(
     uint8_t* smem, const float* __restrict__ C,
-    const float* __restrict__ dA, float* __restrict__ y, int s, int chunk,
-    int nc, int n, int p, int hpg, int units, int zero_start) {
+    const float* __restrict__ a, const float* __restrict__ A,
+    float* __restrict__ y, const Geom& geo, int s, int chunk, int nc, int n,
+    int p, int units, int zero_start) {
   using L = LayoutC<PP, NP>;
   constexpr int GS = L::GS;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -627,11 +698,16 @@ __device__ __forceinline__ void scan_consume(
   float pa[2][T / 8][4], pl[2][T / 8][4];  // P big and small, two sets
   const int r0 = 64 * wg + 16 * ((ctid >> 5) & 3) + g;  // rows r0, r0 + 8
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int row = u / nc, c = u % nc, c0 = c * chunk, grp = row / hpg;
+    const int row = u / nc, c = u % nc, c0 = c * chunk;
+    const int bi = row / geo.heads, hi = row - bi * geo.heads;
     const bool inter = !(zero_start && c == 0);
     // seg in log2 units: every exponential below is one ex2
-    chunk_cumsum<256>(dA + (size_t)row * s + c0, chunk, LOG2E, seg, warp_sum,
-                      ctid);
+    if (DT)
+      chunk_cumsum<256, true>(a + (size_t)u * geo.cp, chunk, A[hi], LOG2E,
+                              seg, warp_sum, ctid);
+    else
+      chunk_cumsum<256>(a + (size_t)row * s + c0, chunk, 0.f, LOG2E, seg,
+                        warp_sum, ctid);
     for (int z = nz - 1; z >= 0; --z) {
       const int q0 = z * QT, n_kt = min(q0 / T + 2, n_qt);
       const int qi = q0 / T + wg;
@@ -645,8 +721,9 @@ __device__ __forceinline__ void scan_consume(
         // in parts of 32 state columns, C's A fragments of the next part
         // loaded while this part's products run: two rows of C a thread,
         // at constant offsets
-        const float* c_rows[2] = {C + ((size_t)grp * s + c0 + l0) * n,
-                                  C + ((size_t)grp * s + c0 + l0 + 8) * n};
+        const float* c_base = C + bi * geo.c_b + hi / geo.hpg * geo.c_g;
+        const float* c_rows[2] = {c_base + (c0 + l0) * geo.c_t,
+                                  c_base + (c0 + l0 + 8) * geo.c_t};
         const bool row_in[2] = {l0 < chunk, l0 + 8 < chunk};
         float cf[2][4][4], cl[2][4][4];
         const auto load_c = [&](int part, float (&f)[4][4]) {
@@ -705,6 +782,8 @@ __device__ __forceinline__ void scan_consume(
             reinterpret_cast<const float4*>(smem + L::G_OFF +
                                             (gs * 2 + wg) * G_TILE) +
             (ctid & 127);
+        const float* dts = reinterpret_cast<const float*>(
+            smem + L::DT_OFF + gs * L::DT_BYTES);
 #pragma unroll
         for (int j = 0; j < T / 8; ++j) {
           const float4 v = gt[128 * j];
@@ -722,7 +801,13 @@ __device__ __forceinline__ void scan_consume(
           for (int j = 0; j < T / 8; ++j) {
             const int m = T * i + 8 * j + 2 * t + (e >> 1);
             float& v = pa[b][j][e];
-            v = (m <= l && l < chunk) ? v * exp2_approx(sl - seg[m]) : 0.f;
+            if (DT)   // the key's dt, with its G tile in the stage
+              v = (m <= l && l < chunk)
+                      ? v * exp2_approx(sl - seg[m]) *
+                            dts[8 * j + 2 * t + (e >> 1)]
+                      : 0.f;
+            else
+              v = (m <= l && l < chunk) ? v * exp2_approx(sl - seg[m]) : 0.f;
           }
         }
         split(pa[b], pl[b]);
@@ -772,7 +857,7 @@ __device__ __forceinline__ void scan_consume(
       for (int h = 0; h < 2; ++h) {
         const int l = l0 + 8 * h;
         if (l >= chunk) continue;
-        float* yr = y + ((size_t)row * s + c0 + l) * p;
+        float* yr = y + bi * geo.y_b + hi * geo.y_h + (c0 + l) * geo.y_t;
 #pragma unroll
         for (int j = 0; j < PP / 8; ++j) {
           const int pp = 8 * j + 2 * t;
@@ -790,14 +875,15 @@ __device__ __forceinline__ void scan_consume(
 // ptxas knows the register count at each setmaxnreg (168 at entry): the
 // producer warpgroup drops to PRODUCER_REGS, the consumers rise to
 // CONSUMER_REGS.  Named barrier 1 counts the consumer threads only.
-template <int PP, int NP>
+template <int PP, int NP, bool DT>
 __global__ void __launch_bounds__(SCAN_THREADS, 1)
     chunk_scan(const __grid_constant__ CUtensorMap tX,
                const __grid_constant__ CUtensorMap tS,
                const float* __restrict__ C, const float* __restrict__ scores,
-               const float* __restrict__ dA, float* __restrict__ y, int s,
-               int chunk, int nc, int n, int p, int heads_per_group,
-               int units, int zero_start) {
+               const float* __restrict__ a, const float* __restrict__ A,
+               float* __restrict__ y, const __grid_constant__ Geom geo,
+               int s, int chunk, int nc, int n, int p, int units,
+               int zero_start) {
   using L = LayoutC<PP, NP>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -831,12 +917,12 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
     if (tid >= 32)
       scan_split<PP, NP>(smem, chunk, nc, units, zero_start, tid - 32);
     else if (tid == 0)
-      scan_load<PP, NP>(smem, &tX, &tS, scores, chunk, nc, heads_per_group,
-                        units, zero_start);
+      scan_load<PP, NP, DT>(smem, &tX, &tS, scores, a, chunk, nc,
+                            geo.heads, geo.hpg, geo.cp, units, zero_start);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    scan_consume<PP, NP>(smem, C, dA, y, s, chunk, nc, n, p,
-                         heads_per_group, units, zero_start);
+    scan_consume<PP, NP, DT>(smem, C, a, A, y, geo, s, chunk, nc, n, p,
+                             units, zero_start);
   }
 }
 
@@ -844,20 +930,22 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
 // host
 // ---------------------------------------------------------------------------
 
-// The float32 tensor (d2, d1, d0) at ptr, in boxes of [rows][32] (128-byte
-// swizzle); what lies past d0 or d1 reads as zeros.
+// The float32 tensor (d3, d2, d1, d0) at ptr with element strides (st1,
+// st2, st3) (each a multiple of 4: 16 bytes; d0's is 1), in boxes of
+// [rows][32] (128-byte swizzle); what lies past d0 or d1 reads as zeros.
 int encode(CUtensorMap* map, const void* ptr, int64_t d0, int64_t d1,
-           int64_t d2, int rows) {
+           int64_t d2, int64_t d3, int64_t st1, int64_t st2, int64_t st3,
+           int rows) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
-                              (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 4,
-                                 (cuuint64_t)d0 * d1 * 4};
-  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2,
+                              (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)st1 * 4, (cuuint64_t)st2 * 4,
+                                 (cuuint64_t)st3 * 4};
+  const cuuint32_t box[4] = {32, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -887,43 +975,76 @@ int sm_count() {
   return sms[dev];
 }
 
+// The element strides of a launch, (t, head or group, batch) each: x, B,
+// C, dt, y
+enum { X_ST = 0, B_ST = 3, C_ST = 6, DT_ST = 9, Y_ST = 12, N_ST = 15 };
+
+template <int PP, int NP, bool DT>
+cudaError_t scan_t(const CUtensorMap& tX, const CUtensorMap& tS,
+                   const float* C, const float* scores, const float* a,
+                   const float* A, float* y, const Geom& geo, int64_t s,
+                   int64_t chunk, int64_t nc, int64_t n, int64_t p,
+                   int64_t units, bool zero_start, int sms,
+                   cudaStream_t stream) {
+  using LC = LayoutC<PP, NP>;
+  static bool ready[64] = {};
+  const cudaError_t e = allow_smem(chunk_scan<PP, NP, DT>, LC::SMEM, ready);
+  if (e != cudaSuccess) return e;
+  chunk_scan<PP, NP, DT><<<(unsigned)(units < sms ? units : sms),
+                           SCAN_THREADS, LC::SMEM, stream>>>(
+      tX, tS, C, scores, a, A, y, geo, (int)s, (int)chunk, (int)nc, (int)n,
+      (int)p, (int)units, zero_start);
+  return cudaGetLastError();
+}
+
 template <int PP, int NP>
-int launch_t(const void* x, const void* B, const void* C, const float* dA,
-             const float* init, float* y, float* final_state, float* scratch,
-             int64_t bh, int64_t s, int64_t p, int64_t n, int64_t chunk,
-             int64_t hpg, cudaStream_t stream) {
+int launch_t(const void* x, const void* B, const void* C, const float* dt,
+             const float* A, const float* dA, const float* init, float* y,
+             float* final_state, float* scratch, const int64_t* st,
+             int64_t batch, int64_t s, int64_t heads, int64_t groups,
+             int64_t p, int64_t n, int64_t chunk, cudaStream_t stream) {
   using LG = LayoutG<NP>;
   using LA = LayoutA<PP, NP>;
-  using LC = LayoutC<PP, NP>;
-  const int64_t nc = s / chunk, groups = bh / hpg;
+  const int64_t bh = batch * heads, nc = s / chunk, ngroups = batch * groups;
   const int n_qt = (int)((chunk + T - 1) / T), nt = causal_tiles(n_qt);
+  const int64_t cp = (int64_t)n_qt * T;
   float* states = scratch;
   float* scores = states + bh * nc * n * p;
-  float* decay = scores + groups * nc * nt * (T * T);
+  float* dtT = scores + ngroups * nc * nt * (T * T);  // with dt only
+  float* decay = dtT + (dt != nullptr ? bh * nc * cp : 0);
+  const Geom geo{st[C_ST],     st[C_ST + 1],  st[C_ST + 2],
+                 st[DT_ST],    st[DT_ST + 1], st[DT_ST + 2],
+                 st[Y_ST],     st[Y_ST + 1],  st[Y_ST + 2],
+                 (int)heads,   (int)(heads / groups), (int)cp};
   CUtensorMap tC, tB, tX, tS;
-  int err = encode(&tC, C, n, s, groups, T);
-  if (err == 0) err = encode(&tB, B, n, s, groups, T);
-  if (err == 0) err = encode(&tX, x, p, s, bh, T);
-  if (err == 0) err = encode(&tS, states, n, p, bh * nc, PP);
+  int err = encode(&tC, C, n, s, groups, batch, st[C_ST], st[C_ST + 1],
+                   st[C_ST + 2], T);
+  if (err == 0)
+    err = encode(&tB, B, n, s, groups, batch, st[B_ST], st[B_ST + 1],
+                 st[B_ST + 2], T);
+  if (err == 0)
+    err = encode(&tX, x, p, s, heads, batch, st[X_ST], st[X_ST + 1],
+                 st[X_ST + 2], T);
+  if (err == 0)
+    err = encode(&tS, states, n, p, bh * nc, 1, n, n * p, n * p, PP);
   if (err != 0) return err;
-  static bool ready_g[64] = {}, ready_a[64] = {}, ready_c[64] = {};
+  static bool ready_g[64] = {}, ready_a[64] = {};
   cudaError_t e = allow_smem(chunk_scores<NP>, LG::SMEM, ready_g);
   if (e == cudaSuccess)
     e = allow_smem(chunk_states<PP, NP>, LA::SMEM, ready_a);
-  if (e == cudaSuccess)
-    e = allow_smem(chunk_scan<PP, NP>, LC::SMEM, ready_c);
   if (e != cudaSuccess) return (int)e;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
 
-  chunk_scores<NP><<<dim3((unsigned)nt, (unsigned)nc, (unsigned)groups),
-                     128, LG::SMEM, stream>>>(tC, tB, scores, (int)chunk);
+  chunk_scores<NP><<<dim3((unsigned)nt, (unsigned)nc, (unsigned)ngroups),
+                     128, LG::SMEM, stream>>>(tC, tB, scores, (int)chunk,
+                                              (int)groups);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   chunk_states<PP, NP><<<dim3((unsigned)(NP / LA::NH), (unsigned)nc,
                               (unsigned)bh),
                          128, LA::SMEM, stream>>>(
-      tB, tX, dA, states, decay, (int)s, (int)chunk, (int)nc, (int)n,
-      (int)p, (int)hpg);
+      tB, tX, dA, dt, A, dtT, states, decay, (int)s, (int)chunk, (int)nc,
+      (int)n, (int)p, geo);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   state_pass<<<dim3((unsigned)((n + 31) / 32), (unsigned)((p + 31) / 32),
                    (unsigned)bh),
@@ -931,11 +1052,14 @@ int launch_t(const void* x, const void* B, const void* C, const float* dA,
                                          (int)nc, (int)n, (int)p);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int64_t units = bh * nc;
-  chunk_scan<PP, NP><<<(unsigned)(units < sms ? units : sms), SCAN_THREADS,
-                       LC::SMEM, stream>>>(
-      tX, tS, (const float*)C, scores, dA, y, (int)s, (int)chunk, (int)nc,
-      (int)n, (int)p, (int)hpg, (int)units, init == nullptr);
-  return (int)cudaGetLastError();
+  e = dt != nullptr
+          ? scan_t<PP, NP, true>(tX, tS, (const float*)C, scores, dtT, A, y,
+                                 geo, s, chunk, nc, n, p, units,
+                                 init == nullptr, sms, stream)
+          : scan_t<PP, NP, false>(tX, tS, (const float*)C, scores, dA,
+                                  nullptr, y, geo, s, chunk, nc, n, p, units,
+                                  init == nullptr, sms, stream);
+  return (int)e;
 }
 
 }  // namespace
@@ -976,34 +1100,43 @@ extern "C" int64_t ssd_scan_threads(int64_t* producer_regs,
   return SCAN_THREADS;
 }
 
-// x, y: (bh, s, p); B, C: (bh / heads_per_group, s, n); dA: (bh, s);
-// init, final_state: (bh, n, p) or null; scratch: bh * (s / chunk) *
-// (n * p + 1) + (bh / heads_per_group) * (s / chunk) * t * 4096 floats,
-// t = q (q + 1) / 2 causal tiles of q = ceil(chunk / 64) (ssd_scan.py's
-// scratch_floats); all float32 and contiguous, x, B, C and scratch
-// 16-byte aligned.  s % chunk == 0, 1 <= chunk <= 256, (p, n) one of the
-// pairs below.  Launches chunk_scores, chunk_states, state_pass and
-// chunk_scan on the stream.  Returns cudaGetLastError() (or the error of
-// the attribute call or of the tensor-map encoding).
-extern "C" int ssd_scan_launch(const void* x, const void* B, const void* C,
-                               const void* dA, const void* init, void* y,
-                               void* final_state, void* scratch, int64_t bh,
-                               int64_t s, int64_t p, int64_t n, int64_t chunk,
-                               int64_t heads_per_group, void* stream) {
-  if (bh <= 0 || s <= 0) return 0;
-  if (chunk < 1 || chunk > MAX_CHUNK || s % chunk != 0 ||
-      heads_per_group < 1 || bh % heads_per_group != 0)
+// The models' layout: x (batch, s, heads, p); B, C (batch, s, groups,
+// n), heads a multiple of groups, head h reading group h / (heads /
+// groups); y (batch, s, heads, p), written; with `strides` (15 int64:
+// N_ST above) their element strides (t, head or group, batch), each of x,
+// B and C a multiple of 4 (16 bytes; the last dim's stride is 1), dt's
+// any.  Either dt (batch, s, heads) and A (heads) (dA = dt A, and dt
+// folded into the per-key scales) or dA (batch * heads, s) contiguous and
+// no dt (x taken as x * dt); init, final_state: (batch, heads, n, p)
+// contiguous or null; scratch: ssd_scan.py's scratch_floats, with dt's
+// part when dt is given.  x, B, C and scratch 16-byte aligned; s % chunk
+// == 0, 1 <= chunk <= 256, (p, n) one of the pairs below.  Launches
+// chunk_scores, chunk_states, state_pass and chunk_scan on the stream.
+// Returns cudaGetLastError() (or the error of the attribute call or of
+// the tensor-map encoding).
+extern "C" int ssd_scan_heads_launch(
+    const void* x, const void* B, const void* C, const void* dt,
+    const void* A, const void* dA, const void* init, void* y,
+    void* final_state, void* scratch, const int64_t* strides, int64_t batch,
+    int64_t s, int64_t heads, int64_t groups, int64_t p, int64_t n,
+    int64_t chunk, void* stream) {
+  if (batch <= 0 || heads <= 0 || s <= 0) return 0;
+  if (chunk < 1 || chunk > MAX_CHUNK || s % chunk != 0 || groups < 1 ||
+      heads % groups != 0 || (dt == nullptr) == (dA == nullptr) ||
+      (dt != nullptr && A == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((((uintptr_t)x | (uintptr_t)B | (uintptr_t)C | (uintptr_t)scratch) &
        15) != 0)
     return (int)cudaErrorMisalignedAddress;  // TMA reads 16-byte aligned
   cudaStream_t st = (cudaStream_t)stream;
-  const float *af = (const float*)dA, *initf = (const float*)init;
+  const float *dtf = (const float*)dt, *af = (const float*)A,
+              *daf = (const float*)dA, *initf = (const float*)init;
   float *yf = (float*)y, *ff = (float*)final_state, *sf = (float*)scratch;
 #define SSD_CASE(P_, N_, PP, NP)                                            \
   if (p == P_ && n == N_)                                                   \
-    return launch_t<PP, NP>(x, B, C, af, initf, yf, ff, sf, bh, s, p, n,    \
-                            chunk, heads_per_group, st);
+    return launch_t<PP, NP>(x, B, C, dtf, af, daf, initf, yf, ff, sf,       \
+                            strides, batch, s, heads, groups, p, n, chunk,  \
+                            st);
   SSD_CASE(8, 4, 32, 32)
   SSD_CASE(16, 8, 32, 32)
   SSD_CASE(32, 16, 32, 32)
@@ -1012,4 +1145,24 @@ extern "C" int ssd_scan_launch(const void* x, const void* B, const void* C,
   SSD_CASE(64, 128, 64, 128)
 #undef SSD_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// The reference's (BH, S, P) contract, as before the models' layout: x,
+// y: (bh, s, p); B, C: (bh / heads_per_group, s, n); dA: (bh, s); init,
+// final_state: (bh, n, p) or null; all contiguous; scratch:
+// scratch_floats without dt's part.  The batch-1, heads-bh case of
+// ssd_scan_heads_launch.
+extern "C" int ssd_scan_launch(const void* x, const void* B, const void* C,
+                               const void* dA, const void* init, void* y,
+                               void* final_state, void* scratch, int64_t bh,
+                               int64_t s, int64_t p, int64_t n, int64_t chunk,
+                               int64_t heads_per_group, void* stream) {
+  if (bh <= 0 || s <= 0) return 0;
+  if (heads_per_group < 1 || bh % heads_per_group != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t strides[N_ST] = {p, s * p, 4, n, s * n, 4, n, s * n, 4,
+                                 0, 0, 0, p, s * p, 4};
+  return ssd_scan_heads_launch(x, B, C, nullptr, nullptr, dA, init, y,
+                               final_state, scratch, strides, 1, s, bh,
+                               bh / heads_per_group, p, n, chunk, stream);
 }

@@ -48,8 +48,9 @@ from itertools import product
 
 import torch
 
-from .runtime import (CudaKernel, contiguous_strides, is_sharded, on_cuda,
-                      on_local_rows, refuse_grad, require, shapes_only)
+from .runtime import (CudaKernel, contiguous_strides, is_sharded,
+                      map_strides, on_cuda, on_local_rows, refuse_grad,
+                      require, shapes_only)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILED = (32, 64, 80, 96, 120, 128)   # the tensor-core tiles' head dims
@@ -187,25 +188,6 @@ def _k_chunk(dtype, d) -> int:
     return 64 if dtype == torch.bfloat16 and d != 32 else 32
 
 
-def _map_strides(t, dims):
-    """t's strides in elements along ``dims`` (row, head, batch) for a
-    tensor map: a dim of one element takes 16 bytes (its stride is never
-    used); every other stride a positive multiple of 16 bytes."""
-    elt = t.element_size()
-    out = []
-    for dim in dims:
-        if dim is None or t.shape[dim] == 1:
-            out.append(16 // elt)
-            continue
-        st = t.stride(dim)
-        require(st > 0 and st * elt % 16 == 0 and st * elt < 2 ** 40,
-                f"flash_attention kernel: a stride of {st * elt} bytes "
-                f"(dim {dim} of {tuple(t.shape)}, strides {t.stride()}) is "
-                f"not a positive multiple of 16 bytes, as TMA takes them")
-        out.append(st)
-    return out
-
-
 def tma_strides(q, k, v, k_shared=None) -> list:
     """Every check of a kernel launch on (B, T, H, d) operands, on their
     metadata alone, before any launch: the gradient guard, the dtype, the
@@ -234,10 +216,10 @@ def tma_strides(q, k, v, k_shared=None) -> list:
             "(the kernel reads them with TMA)")
     B, T, H = q.shape[:3]
     out = contiguous_strides((B, T, H, dv))
-    return (_map_strides(q, (1, 2, 0)) + _map_strides(k, (1, 2, 0))
-            + _map_strides(v, (1, 2, 0))
-            + (_map_strides(k_shared, (1, None, 0)) if shared
-               else [16 // q.element_size()] * 3)
+    return (sum((map_strides("flash_attention", t, (1, 2, 0))
+                 for t in (q, k, v)), [])
+            + (map_strides("flash_attention", k_shared, (1, None, 0))
+               if shared else [16 // q.element_size()] * 3)
             + [out[1] if T > 1 else 16 // q.element_size(),
                out[2] if H > 1 else 16 // q.element_size(),
                out[0] if B > 1 else 16 // q.element_size()])

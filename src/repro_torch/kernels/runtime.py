@@ -209,6 +209,27 @@ def on_local_rows(fn, *tensors, **kwargs):
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
+def map_strides(name: str, t, dims) -> list:
+    """t's strides in elements along ``dims`` for a TMA tensor map (the
+    kernels that read operands in their own strides): a dim that is None
+    or of one element takes 16 bytes (its stride is never used); every
+    other stride must be a positive multiple of 16 bytes below 2^40, as
+    TMA takes them, or ``name``'s launch is refused (ValueError)."""
+    elt = t.element_size()
+    out = []
+    for dim in dims:
+        if dim is None or t.shape[dim] == 1:
+            out.append(16 // elt)
+            continue
+        st = t.stride(dim)
+        require(st > 0 and st * elt % 16 == 0 and st * elt < 2 ** 40,
+                f"{name} kernel: a stride of {st * elt} bytes (dim {dim} of "
+                f"{tuple(t.shape)}, strides {t.stride()}) is not a positive "
+                f"multiple of 16 bytes, as TMA takes them")
+        out.append(st)
+    return out
+
+
 def contiguous_strides(shape) -> tuple:
     """The strides of a contiguous tensor of ``shape``, nothing
     allocated (a meta tensor of a DTensor's global shape would count in

@@ -5,10 +5,12 @@ Semantics (per head h, state N, head-dim P):
     y_t = C_t . h_t + D_h x_t
 
 The chunked SSD (:func:`ssd_chunked`) goes through the SSD scan kernel
-(:func:`repro_torch.kernels.ssd_scan.ssd_scan`, ``csrc/ssd_scan.cu``) for
-CUDA tensors when autograd records nothing (the kernel has no backward),
-which also returns the final state that the cache-building prefill hands
-to decode.  For CPU tensors, and when a gradient is being recorded
+(:func:`repro_torch.kernels.ssd_scan.ssd_scan_heads`,
+``csrc/ssd_scan.cu``) for CUDA tensors when autograd records nothing (the
+kernel has no backward), on the mixer's x, dt, B and C as they are (in
+the models' layout; dt folded into the kernel), and returns y in that
+layout and the final state that the cache-building prefill hands to
+decode.  For CPU tensors, and when a gradient is being recorded
 (training), it is the reference's ``ssd_chunked``, einsum for einsum.
 The single-token decode is plain PyTorch, as the reference's is plain
 jnp.  Unlike the reference, which returns a new cache, the port writes
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from .. import rng
 from ..kernels.runtime import (is_sharded, on_cuda, on_local_rows,
                                records_grad, shapes_only)
-from ..kernels.ssd_scan import ssd_scan
+from ..kernels.ssd_scan import ssd_scan_heads
 from .layers import dense_init, dtype_of
 from .shardhooks import constrain
 
@@ -84,24 +86,11 @@ def _ssd_rows(x, dt, Bm, Cm, *init, A, chunk):
 
 
 def _ssd_chunked_scan(x, dt, A, Bm, Cm, chunk, initial_state=None):
-    """Through the SSD scan kernel: (B, H) flattened into the kernel's
-    rows, query head h reading group h // (H // G) (the reference's
-    ``jnp.repeat``) through the kernel's heads_per_group."""
-    B_, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-
-    def rows(t):   # (B, S, X, Y) -> (B * X, S, Y)
-        return t.permute(0, 2, 1, 3).reshape(-1, S, t.shape[-1])
-
-    dA = (dt * A).permute(0, 2, 1).reshape(B_ * H, S)
-    init = (None if initial_state is None
-            else initial_state.reshape(B_ * H, N, P).contiguous())
-    y, final = ssd_scan(rows(x * dt[..., None]).contiguous(),
-                        rows(Bm).contiguous(), rows(Cm).contiguous(),
-                        dA.contiguous(), chunk, final=True,
-                        heads_per_group=H // G, initial_state=init)
-    return (y.reshape(B_, H, S, P).permute(0, 2, 1, 3),
-            final.reshape(B_, H, N, P))
+    """Through the SSD scan kernel in the models' layout: query head h
+    reads group h // (H // G) (the reference's ``jnp.repeat``), dt is
+    folded into the kernel, and y comes back (B, S, H, P) as written."""
+    init = None if initial_state is None else initial_state.contiguous()
+    return ssd_scan_heads(x, dt, A, Bm, Cm, chunk, init, final=True)
 
 
 def _ssd_chunked_plain(x, dt, A, Bm, Cm, chunk, initial_state=None):

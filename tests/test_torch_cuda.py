@@ -622,6 +622,70 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(gpu):
         ssd_scan(xdt, B, C, dA.cpu(), 32)
 
 
+def _ssd_heads_inputs(gpu, B, S, H, P, G, N, seed, views=False):
+    """x, dt, A, B, C in the models' layout as the mixer makes them; with
+    ``views``, x, B and C are views of one (B, S, H P + 2 G N) buffer
+    (the mixer's float32 conv output)."""
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    xbc = 0.5 * torch.randn(B, S, H * P + 2 * G * N, generator=g, device=gpu)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = xbc[..., H * P + G * N:].reshape(B, S, G, N)
+    if not views:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device=gpu))
+    A = -torch.linspace(0.2, 1.2, H, device=gpu)
+    return x, dt, A, Bm, Cm
+
+
+# (B, S, H, P, G, N, chunk): the serves' calls, their smoke configs
+SSD_HEADS = [(4, 1024, 32, 64, 1, 128, 256),   # mamba2-370m prefill
+             (4, 1024, 80, 64, 1, 64, 256),    # zamba2-2.7b prefill
+             (2, 64, 16, 32, 1, 16, 32),       # mamba2-370m smoke, padded
+             (2, 160, 8, 64, 1, 64, 32),       # zamba2 width-80 smoke
+             (1, 96, 6, 8, 2, 4, 96)]          # chunk off the tiles, G 2
+
+
+@pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_HEADS)
+def test_ssd_heads_kernel_matches_plain(gpu, B, S, H, P, G, N, chunk, views):
+    """The (B, S, H, P) entry point, dt folded into the kernel, against
+    its plain version (the rows, x * dt, ssd_scan_plain) within the
+    kernel's tolerance, from a zero and a given state; y written in the
+    models' layout."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan_heads,
+                                              ssd_scan_heads_plain)
+    x, dt, A, Bm, Cm = _ssd_heads_inputs(gpu, B, S, H, P, G, N, S + H,
+                                         views)
+    init = torch.randn(B, H, N, P, device=gpu)
+    for st0 in (None, init):
+        before = runtime.KERNELS["ssd_scan"].launches
+        y, st = ssd_scan_heads(x, dt, A, Bm, Cm, chunk, st0, final=True)
+        torch.cuda.synchronize()
+        assert runtime.KERNELS["ssd_scan"].launches == before + 1
+        assert y.is_contiguous() and tuple(y.shape) == (B, S, H, P)
+        want_y, want_st = ssd_scan_heads_plain(x, dt, A, Bm, Cm, chunk, st0)
+        torch.testing.assert_close(y, want_y, **SSD_TOL)
+        torch.testing.assert_close(st, want_st, **SSD_TOL)
+
+
+def test_ssd_heads_kernel_refusals_launch_nothing(gpu):
+    from repro_torch.kernels.ssd_scan import ssd_scan_heads
+    x, dt, A, Bm, Cm = _ssd_heads_inputs(gpu, 2, 64, 4, 32, 2, 16, 0)
+    before = runtime.KERNELS["ssd_scan"].launches
+    for args in ((torch.zeros(2, 64, 4, 33, device=gpu)[..., :32], dt, A,
+                  Bm, Cm, 32),                       # head stride 132 B
+                 (x, dt, A, Bm[:, :, :1].expand(2, 64, 2, 16), Cm, 32),
+                 (x, dt, A, Bm, Cm, 48),             # S % chunk
+                 (x, dt.double(), A, Bm, Cm, 32),
+                 (x, dt, A, *(torch.zeros(2, 64, 3, 16, device=gpu),) * 2,
+                  32)):                              # 4 heads, 3 groups
+        with pytest.raises(ValueError):
+            ssd_scan_heads(*args)
+    assert runtime.KERNELS["ssd_scan"].launches == before
+
+
 @pytest.mark.parametrize("d,dv", [(16, 16), (48, 48), (112, 112),
                                   (192, 192), (192, 64)])
 def test_flash_attention_refuses_head_dims_it_is_not_built_for(gpu, d, dv):

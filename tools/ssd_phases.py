@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the SSD scan's chunk_scan kernel spends its cycles, on one GPU.
 
-    python3 tools/ssd_phases.py [--shape mamba2|zamba2]
+    python3 tools/ssd_phases.py [--shape mamba2|zamba2] [--layout heads]
 
 Builds a copy of ``src/repro_torch/csrc/ssd_scan.cu`` into
 ``build/ssd_phases/`` with ``clock64()`` read by the first thread of each
@@ -10,8 +10,11 @@ once at the prefill's shape (mamba2: mamba2-370m's (BH 128, S 1024, P 64,
 N 128, chunk 256, 32 heads per group); zamba2: zamba2-2.7b's (BH 320,
 S 1024, P 64, N 64, chunk 256, 80 heads per group)) and prints the cycles
 per consumer warpgroup spent in each phase, summed over its (row, chunk)
-pairs, query tiles and key tiles.  The phases are found by the statements
-of the source; the script fails if one is missing.  The counters take
+pairs, query tiles and key tiles.  ``--layout heads`` runs the models'
+layout's entry instead (x (4, S, BH / 4, P), dt folded into the kernel:
+``ssd_scan_heads_launch``) on the same shape.  The phases are found by
+the statements of the source (both of chunk_scan's instantiations carry
+the counters); the script fails if one is missing.  The counters take
 cycles themselves: read the shares more than the sum.  Needs a CUDA GPU.
 """
 from __future__ import annotations
@@ -31,8 +34,8 @@ SHAPES = {"mamba2": (128, 1024, 64, 128, 256, 32),
 # passes them; the key-tile phases repeat per tile (the next tile's P is
 # prepared while this tile's product runs)
 PHASES = [
-    ("    chunk_cumsum<256>(dA + (size_t)row * s + c0, chunk, LOG2E, seg, "
-     "warp_sum,\n                      ctid);",
+    ("      chunk_cumsum<256>(a + (size_t)row * s + c0, chunk, 0.f, LOG2E, "
+     "seg,\n                        warp_sum, ctid);",
      "pair start: both consumers, seg's cumsum"),
     ("        bar_wait<true>(bars + L::S_READY, ks & 1);",
      "C (unless loaded ahead), its split; S_prev split"),
@@ -53,8 +56,8 @@ PHASES = [
      "        }\n      }", "y stored"),
 ]
 START = ("  for (int u = blockIdx.x; u < units; u += gridDim.x) {\n"
-         "    const int row = u / nc, c = u % nc, c0 = c * chunk, "
-         "grp = row / hpg;\n"
+         "    const int row = u / nc, c = u % nc, c0 = c * chunk;\n"
+         "    const int bi = row / geo.heads, hi = row - bi * geo.heads;\n"
          "    const bool inter")
 END = "}\n\n// Warp specialisation in one top-level branch on the warpgroup"
 
@@ -89,11 +92,12 @@ extern "C" int prof_zero() {{
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", choices=list(SHAPES), default="mamba2")
+    ap.add_argument("--layout", choices=["rows", "heads"], default="rows")
     args = ap.parse_args()
     import torch
 
     from repro_torch.kernels import runtime
-    from repro_torch.kernels.ssd_scan import scratch_floats
+    from repro_torch.kernels.ssd_scan import launch_strides, scratch_floats
     if not torch.cuda.is_available():
         raise SystemExit("ssd_phases: no CUDA device")
     out_dir = ROOT / "build" / "ssd_phases"
@@ -131,6 +135,33 @@ def main() -> int:
         if err:
             raise SystemExit(f"ssd_phases: CUDA error {err}")
 
+    if args.layout == "heads":   # batch 4, the rows' heads, dt separate
+        heads = so.ssd_scan_heads_launch
+        heads.restype = ctypes.c_int
+        heads.argtypes = ([ctypes.c_void_p] * 10
+                          + [ctypes.POINTER(ctypes.c_int64)]
+                          + [ctypes.c_int64] * 7 + [ctypes.c_void_p])
+        nb, H, G = 4, bh // 4, bh // 4 // hpg
+        x = xdt.reshape(nb, H, s, p).permute(0, 2, 1, 3).contiguous()
+        Bm, Cm = (t.reshape(nb, G, s, n).permute(0, 2, 1, 3).contiguous()
+                  for t in (B, C))
+        dt = torch.nn.functional.softplus(
+            torch.randn(nb, s, H, generator=g, device=dev))
+        A = -torch.linspace(0.2, 1.2, H, device=dev)
+        st = (ctypes.c_int64 * 15)(*launch_strides(x, dt, A, Bm, Cm, chunk))
+        yh = torch.empty_like(x)
+        scratch = torch.empty(scratch_floats(bh, s, p, n, chunk, hpg,
+                                             with_dt=True), device=dev)
+
+        def call():
+            err = heads(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                        dt.data_ptr(), A.data_ptr(), None, None,
+                        yh.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+                        st, nb, s, H, G, p, n, chunk,
+                        torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"ssd_phases: CUDA error {err}")
+
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -143,8 +174,9 @@ def main() -> int:
     wgs = 2 * min(units, torch.cuda.get_device_properties(dev)
                   .multi_processor_count)
     total = sum(counts)
-    print(f"chunk_scan at {(bh, s, p, n)} chunk {chunk}, heads per group "
-          f"{hpg}: {units} (row, chunk) pairs on {wgs // 2} CTAs, {wgs} "
+    print(f"chunk_scan ({args.layout}) at {(bh, s, p, n)} chunk {chunk}, "
+          f"heads per group {hpg}: {units} (row, chunk) pairs on "
+          f"{wgs // 2} CTAs, {wgs} "
           f"consumer warpgroups; {torch.cuda.get_device_name(0)}")
     for (_, name), c in zip(PHASES, counts):
         print(f"  {name:42s} {c / wgs:9.0f} cycles per warpgroup "
